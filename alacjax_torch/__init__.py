@@ -1,0 +1,15 @@
+"""alacjax_torch — the PyTorch/CUDA port of alacjax's batched ALAC codec.
+
+The slice ported so far is the main path: single-element 16-bit layouts,
+independent full frames, the standard search and the 8-tap decode.
+Every scan runs in a hand-written CUDA kernel for Hopper
+(``alacjax_torch/csrc``) on CUDA tensors, and in its plain torch version
+(``alacjax_torch/ops``) on CPU tensors.  The package imports torch and
+never jax; alacjax/ stays the reference it is held to, bit for bit.
+"""
+
+from alacjax.types import AlacConfig
+
+from .codec import TorchCodec, get_codec
+
+__all__ = ["AlacConfig", "TorchCodec", "get_codec"]

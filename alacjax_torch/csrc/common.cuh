@@ -1,0 +1,170 @@
+// Shared device helpers for the alacjax_torch kernels: exact C-reference
+// integer semantics (int32 wraps, arithmetic >> on signed, logical on
+// unsigned) and the adaptive-Rice token machine of ag_enc.c.
+//
+// Signed wraparound is written through unsigned arithmetic (wadd/wsub/
+// wmul) so no step relies on signed overflow, which C++ leaves undefined.
+#pragma once
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace alac {
+
+// aglib.h constants (alacjax/types.py)
+constexpr int QBSHIFT = 9;
+constexpr unsigned QB = 1u << QBSHIFT;
+constexpr int PBSHIFT = 9;
+constexpr int MMULSHIFT = 2;
+constexpr int MDENSHIFT = QBSHIFT - MMULSHIFT - 1;   // 6
+constexpr unsigned MOFF = 1u << (MDENSHIFT - 2);     // 16
+constexpr int BITOFF = 24;
+constexpr int MAX_PREFIX_16 = 9;
+constexpr int MAX_PREFIX_32 = 9;
+constexpr unsigned N_MAX_MEAN_CLAMP = 0xFFFFu;
+constexpr unsigned N_MEAN_CLAMP_VAL = 0xFFFFu;
+constexpr int MAX_RICE_NUMBITS = 25;
+constexpr unsigned INF_KEY = 0xFFFFFFFFu;
+
+__device__ __forceinline__ int wadd(int a, int b) { return (int)((unsigned)a + (unsigned)b); }
+__device__ __forceinline__ int wsub(int a, int b) { return (int)((unsigned)a - (unsigned)b); }
+__device__ __forceinline__ int wmul(int a, int b) { return (int)((unsigned)a * (unsigned)b); }
+__device__ __forceinline__ int wneg(int a) { return (int)(0u - (unsigned)a); }
+
+// (x << (32-bits)) >> (32-bits): low `bits` bits, sign-extended
+__device__ __forceinline__ int sext(int x, int bits) {
+    int sh = 32 - bits;
+    return (int)((unsigned)x << sh) >> sh;
+}
+
+__device__ __forceinline__ int sign_of(int x) { return (x > 0) - (x < 0); }
+
+// leading zeros of a u32; clz32(0) == 32 (the _clz32 contract)
+__device__ __forceinline__ int clz32(unsigned x) { return __clz((int)x); }
+
+__device__ __forceinline__ int lg3a(unsigned x) { return 31 - clz32(x + 3u); }
+
+// min(n / m, 9) and n - m * that: the threshold count of rice.py
+// (m <= 16383, so 9 * m cannot wrap)
+__device__ __forceinline__ void divmod_capped(unsigned n, unsigned m, int& div,
+                                              unsigned& mod) {
+    int d = 0;
+#pragma unroll
+    for (unsigned j = 1; j <= 9; ++j) d += (n >= j * m) ? 1 : 0;
+    div = d;
+    mod = n - m * (unsigned)d;
+}
+
+// ag_enc.c :: dyn_code_32bit (non-escape codeword or the 9-ones prefix)
+__device__ __forceinline__ bool dyn_code_32(unsigned m, int k, unsigned n,
+                                            unsigned& val, int& len) {
+    int div;
+    unsigned mod;
+    divmod_capped(n, m, div, mod);
+    int de = (mod == 0u) ? 1 : 0;
+    int nb = div + k + 1 - de;
+    if (div >= MAX_PREFIX_32 || nb > MAX_RICE_NUMBITS) {
+        val = (1u << MAX_PREFIX_32) - 1u;
+        len = MAX_PREFIX_32;
+        return true;
+    }
+    val = ((((1u << div) - 1u) << (nb - div)) + mod + 1u - (unsigned)de);
+    len = nb;
+    return false;
+}
+
+// ag_enc.c :: dyn_code (zero-run lengths; n <= 65535)
+__device__ __forceinline__ void dyn_code_16(unsigned m, int k, unsigned n,
+                                            unsigned& val, int& len) {
+    if (m == 0u) m = 1u;
+    int div;
+    unsigned mod;
+    divmod_capped(n, m, div, mod);
+    if (div >= MAX_PREFIX_16) {
+        val = (((1u << MAX_PREFIX_16) - 1u) << 16) | n;
+        len = MAX_PREFIX_16 + 16;
+        return;
+    }
+    int de = (mod == 0u) ? 1 : 0;
+    int nb = div + k + 1 - de;
+    int sh = nb - div > 0 ? nb - div : 0;
+    val = ((((1u << div) - 1u) << sh) + mod + 1u - (unsigned)de);
+    len = nb;
+}
+
+struct RiceState {
+    unsigned mb;
+    bool in_run;
+    unsigned run_len;
+    int run_kz;
+    unsigned run_mz;
+};
+
+__device__ __forceinline__ RiceState rice_init(unsigned mb0) {
+    RiceState s;
+    s.mb = mb0;
+    s.in_run = false;
+    s.run_len = 0u;
+    s.run_kz = 0;
+    s.run_mz = 0u;
+    return s;
+}
+
+// One step of the ag_enc token machine (rice._encode_step_tokens).
+// Tokens in stream order: the pending zero-run codeword (run_val,
+// run_len) and the residual codeword (val, len) — on escape the 9-ones
+// prefix followed by the raw bit_size-bit payload, merged into one token
+// of 9 + bit_size <= 32 bits.  t == S is the virtual end step that
+// flushes a pending run.  Returns the bits this step spends.
+__device__ __forceinline__ int rice_step(RiceState& st, int x, int t, int S,
+                                         int bit_size, unsigned pb, int kb,
+                                         unsigned wb, unsigned& run_val,
+                                         int& run_bits, unsigned& val,
+                                         int& len) {
+    const bool valid = t < S;
+    const bool nonzero = x != 0;
+    const bool run_end_nonzero = st.in_run && nonzero && valid;
+    const unsigned run_len_new = st.run_len + 1u;
+    const bool cap = st.in_run && !nonzero && valid && run_len_new >= 65535u;
+    const bool flush = st.in_run && !valid;
+    run_val = 0u;
+    run_bits = 0;
+    if (run_end_nonzero || cap || flush)
+        dyn_code_16(st.run_mz, st.run_kz, cap ? run_len_new : st.run_len,
+                    run_val, run_bits);
+
+    const bool code_now = valid && (!st.in_run || run_end_nonzero);
+    const unsigned zmode = run_end_nonzero ? 1u : 0u;
+    val = 0u;
+    len = 0;
+    unsigned mb1 = st.mb;
+    if (code_now) {
+        int k = lg3a(st.mb >> QBSHIFT);
+        if (k > kb) k = kb;
+        const unsigned m = (1u << k) - 1u;
+        const unsigned absx = x < 0 ? 0u - (unsigned)x : (unsigned)x;
+        const unsigned n = absx * 2u - (x < 0 ? 1u : 0u) - zmode;
+        if (dyn_code_32(m, k, n, val, len)) {
+            if (bit_size < 32)
+                val = (val << bit_size) | (n & ((1u << bit_size) - 1u));
+            len += bit_size;
+        }
+        unsigned mb_upd = pb * (n + zmode) + st.mb - ((pb * st.mb) >> PBSHIFT);
+        if (n > N_MAX_MEAN_CLAMP) mb_upd = N_MEAN_CLAMP_VAL;
+        mb1 = mb_upd;
+    }
+    const bool trigger = code_now && ((mb1 << MMULSHIFT) < QB) && (t + 1 < S);
+    const bool continuing = st.in_run && !nonzero && valid && !cap;
+    if (trigger) {
+        int kz = clz32(mb1) - BITOFF + (int)((mb1 + MOFF) >> MDENSHIFT);
+        int kzc = kz < 0 ? 0 : (kz > 31 ? 31 : kz);
+        st.run_kz = kz;
+        st.run_mz = ((1u << kzc) - 1u) & wb;
+        mb1 = 0u;
+    }
+    st.mb = mb1;
+    st.in_run = continuing || trigger;
+    st.run_len = continuing ? run_len_new : 0u;
+    return run_bits + len;
+}
+
+}  // namespace alac

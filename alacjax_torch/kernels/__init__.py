@@ -1,0 +1,49 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a) and their wrappers.
+
+One wrapper per kernel (cost, emit, merge, decode).  A wrapper checks
+its inputs, allocates its outputs, and for CUDA tensors launches its
+kernel (or raises — there is no fallback); for CPU tensors it runs the
+plain torch version from ``alacjax_torch.ops``.  ``LAUNCHES`` counts
+kernel launches per wrapper, so a run can show that the main path went
+through the kernels.
+"""
+
+from __future__ import annotations
+
+import torch
+
+LAUNCHES = {"cost": 0, "emit": 0, "merge": 0, "decode": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def on_cuda(*tensors) -> bool:
+    """True if the tensors lie on a CUDA device (all of them must agree);
+    False for CPU tensors, which take the plain version."""
+    devs = {t.device.type for t in tensors if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on mixed devices: {sorted(devs)}")
+    dev = devs.pop()
+    if dev == "cuda":
+        return True
+    if dev == "cpu":
+        return False
+    raise ValueError(f"unsupported device type {dev!r}")
+
+
+def expect(t, name: str, shape: tuple, dtype=torch.int32) -> None:
+    """Raise unless ``t`` has this dtype, shape and is contiguous."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def stream_ptr(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream

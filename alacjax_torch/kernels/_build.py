@@ -1,0 +1,113 @@
+"""Build and load the port's CUDA kernels.
+
+All ``alacjax_torch/csrc/*.cu`` compile with nvcc into ONE shared
+library with a plain C interface, loaded with ctypes (no PyTorch headers,
+so a build takes seconds, not minutes).  The build happens at first use,
+into ``build/alacjax_torch/<hash>/`` at the repository root, keyed by a
+hash of the sources and flags; a finished library is reused.
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; ``check`` raises on anything but 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "alacjax_torch")
+NVCC_CANDIDATES = ("/usr/local/cuda/bin/nvcc",)
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_U = ctypes.c_uint
+# C signatures: name -> argtypes (every function returns int)
+SIGNATURES = {
+    "alac_cost": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _U, _U,
+                  _I, _U, _P],
+    "alac_emit": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _U, _I,
+                  _U, _P],
+    "alac_merge": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "alac_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                    _I, _U, _I, _U, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None     # wall time of the build (or load) that ran here
+build_log = ""           # nvcc's stderr (-Xptxas -v register report)
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
+                  + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),) + NVCC_CANDIDATES:
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+def _key() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _build(out_dir: str) -> str:
+    lib_path = os.path.join(out_dir, "libalacjax_torch.so")
+    if os.path.exists(lib_path):
+        return lib_path
+    global build_log
+    nvcc = _nvcc()
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    cus = [p for p in _sources() if p.endswith(".cu")]
+    cmd = [nvcc] + NVCC_FLAGS + ["-o", tmp] + cus
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    build_log = proc.stderr
+    with open(os.path.join(out_dir, "build.log"), "w") as f:
+        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    os.replace(tmp, lib_path)      # atomic: concurrent builds agree
+    return lib_path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib, build_seconds
+    with _lock:
+        if _lib is None:
+            t0 = time.perf_counter()
+            path = _build(os.path.join(BUILD_ROOT, _key()))
+            cdll = ctypes.CDLL(path)
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(cdll, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = cdll
+            build_seconds = time.perf_counter() - t0
+        return _lib
+
+
+def check(status: int, name: str) -> None:
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {status}")

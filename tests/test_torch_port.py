@@ -1,0 +1,216 @@
+"""Properties of the alacjax_torch package itself: it never imports jax,
+its kernel wrappers run the plain version only for CPU tensors and
+refuse anything else rather than fall back, and the GPU smoke script
+fails without a card.  The tests marked ``cuda`` hold each CUDA kernel
+against its plain version on a card and skip without one.  The machine
+with the card need not have jax, so run them there without the test
+tier's conftest (which pins jax to the CPU):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_port.py
+"""
+
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from alacjax.types import AlacConfig, KB0, MB0, PB0
+from alacjax_torch import TorchCodec, kernels
+from alacjax_torch.kernels import _build
+from alacjax_torch.kernels import cost as k_cost
+from alacjax_torch.kernels import decode as k_decode
+from alacjax_torch.kernels import emit as k_emit
+from alacjax_torch.kernels import merge as k_merge
+from alacjax_torch.ops import bitpack, fused_decode, predict, rice
+from alacjax_torch.state import init_coefs_batched
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PKG = REPO / "alacjax_torch"
+WB = (1 << KB0) - 1
+RICE = (MB0, PB0, KB0, WB)
+JAX_MODULES = ("jax", "jaxlib", "alacjax.ops", "alacjax.codec")
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys\n"
+            "import alacjax_torch, alacjax_torch.codec, alacjax_torch.kernels\n"
+            "import alacjax_torch.state\n"
+            "from alacjax_torch.kernels import cost, decode, emit, merge\n"
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib', 'alacjax.ops', 'alacjax.codec'))]\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_sources_import_no_jax():
+    """No module of the package (nor chip_smoke.py) names jax, or an
+    alacjax module that imports it, in an import statement."""
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert not name.startswith(JAX_MODULES), (path, name)
+
+
+def _small_inputs(rng, L=4, S=64):
+    x = rng.integers(-3000, 3000, (L, S)).astype(np.int32)
+    x[0] = 0
+    return torch.from_numpy(x), init_coefs_batched(L)
+
+
+def test_cpu_tensors_take_the_plain_version(rng):
+    """On CPU tensors each wrapper returns its plain version's result and
+    counts no launch."""
+    x, c0 = _small_inputs(rng)
+    kernels.reset_launches()
+    got = k_cost.pc_block_cost2(x, c0, 8, 17, 9, *RICE, dual=True)
+    want = predict.pc_block_cost2(x, c0, 8, 17, 9, *RICE)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    got = k_cost.pc_block_cost2(x, c0, 4, 17, 9, *RICE, dual=False)
+    want = predict.pc_block_cost_coefs(x, c0, 4, 17, 9, *RICE)
+    for g, w in zip((got[0], got[1], got[3]), want):
+        assert torch.equal(g, w)
+    start = torch.tensor([0, 5, 31, 64], dtype=torch.int32)
+    got = k_emit.rice_encode_words(x, 17, *RICE, start)
+    want = rice.rice_encode_words(x, 17, *RICE, start)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    words = torch.zeros((4, 40), dtype=torch.int32)
+    words[:, :30] = got[0][:, :60:2]
+    keys = torch.full((4, 12), -1, dtype=torch.int32)
+    keys[:, :5] = torch.arange(5, dtype=torch.int32)
+    vals = torch.arange(48, dtype=torch.int32).reshape(4, 12)
+    tails = (torch.ones((4, 1), dtype=torch.int32),
+             torch.full((4, 1), 7, dtype=torch.int32))
+    assert torch.equal(k_merge.merge_sorted_chunks(vals, keys, *tails, 9),
+                       bitpack.merge_sorted_chunks(vals, keys, *tails, 9))
+    lane = [torch.full((4,), v, dtype=torch.int32) for v in (0, PB0)]
+    per = (c0, torch.zeros((4,), dtype=torch.int32),
+           torch.full((4,), 8, dtype=torch.int32),
+           torch.full((4,), 9, dtype=torch.int32))
+    got = k_decode.decode_channel(words, lane[0], 16, 17, MB0, lane[1], KB0,
+                                  WB, *per)
+    want = fused_decode.decode_channel(words, lane[0], 16, 17, MB0, lane[1],
+                                       KB0, WB, *per)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert kernels.LAUNCHES == {"cost": 0, "emit": 0, "merge": 0, "decode": 0}
+
+
+def test_other_devices_raise_instead_of_falling_back(rng):
+    x, c0 = _small_inputs(rng)
+    with pytest.raises(ValueError, match="unsupported device"):
+        k_cost.pc_block_cost2(x.to("meta"), c0.to("meta"), 8, 17, 9, *RICE)
+    with pytest.raises(ValueError, match="mixed devices"):
+        k_emit.rice_encode_words(x.to("meta"), 17, *RICE,
+                                 torch.zeros((4,), dtype=torch.int32))
+
+
+def test_cuda_entry_raises_without_a_gpu(monkeypatch, tmp_path):
+    """Without a card the CUDA path raises: the codec on device "cuda"
+    does not quietly run on the CPU, and the kernel build needs nvcc."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    cfg = AlacConfig(bit_depth=16, num_channels=2, frame_length=64)
+    pcm = np.zeros((2, 2, 64), dtype=np.int32)
+    with pytest.raises((RuntimeError, AssertionError)):
+        TorchCodec(cfg, chunk=2, device="cuda").encode_frames(pcm)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "NVCC_CANDIDATES", ())
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "BUILD_ROOT", str(tmp_path / "build"))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.lib()
+    assert not (tmp_path / "build").exists()
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_a_gpu(tmp_path, alone):
+    """chip_smoke.py exits nonzero and prints no result line without a
+    card, and in a directory that holds nothing else of the repo."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    cwd = REPO
+    script = REPO / "chip_smoke.py"
+    if alone:
+        cwd = tmp_path
+        script = pathlib.Path(shutil.copy(script, tmp_path))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+# ---------------------------------------------------------------------------
+# on the card: each kernel against its plain version, bit for bit
+# ---------------------------------------------------------------------------
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA)")
+    return torch.device("cuda")
+
+
+def _same(got, want):
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order,dual", [(4, True), (8, True), (8, False)])
+def test_cost_kernel_on_card(cuda, order, dual):
+    x, c0 = _small_inputs(np.random.default_rng(order), L=96, S=300)
+    x, c0 = x.to(cuda), c0.to(cuda)
+    got = k_cost.pc_block_cost2(x, c0, order, 17, 9, *RICE, dual=dual)
+    if dual:
+        _same(got, predict.pc_block_cost2(x, c0, order, 17, 9, *RICE))
+    else:
+        _same((got[0], got[1], got[3]),
+              predict.pc_block_cost_coefs(x, c0, order, 17, 9, *RICE))
+
+
+@pytest.mark.cuda
+def test_emit_kernel_on_card(cuda):
+    rng = np.random.default_rng(2)
+    x, _ = _small_inputs(rng, L=96, S=300)
+    x[1] = torch.from_numpy(rng.integers(-2, 3, 300).astype(np.int32))
+    start = torch.from_numpy(rng.integers(0, 3000, 96).astype(np.int32))
+    got = k_emit.rice_encode_words(x.to(cuda), 17, *RICE, start.to(cuda))
+    _same(got, rice.rice_encode_words(x, 17, *RICE, start))
+
+
+@pytest.mark.cuda
+def test_merge_and_decode_kernels_on_card(cuda):
+    cfg = AlacConfig(bit_depth=16, num_channels=2, frame_length=256)
+    rng = np.random.default_rng(3)
+    t = np.arange(256)
+    pcm = np.stack([np.clip(np.sin(t * (0.01 + 0.003 * b)) * 9000
+                            + rng.integers(-40, 40, (2, 256)), -32768, 32767)
+                    for b in range(12)]).astype(np.int32)
+    pcm[3] = rng.integers(-32768, 32768, (2, 256))    # escapes
+    pcm[5] = 0
+    codec = TorchCodec(cfg, chunk=12, device="cuda")
+    kernels.reset_launches()
+    out, nums = codec.decode_frames_ex(codec.encode_frames(pcm))
+    assert all(n > 0 for n in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    np.testing.assert_array_equal(out, pcm)
+    assert codec.fallback_frames == 0
+    cpu = TorchCodec(cfg, chunk=12, device="cpu")
+    assert codec.encode_frames(pcm) == cpu.encode_frames(pcm)
