@@ -1,7 +1,8 @@
 """alacjax_torch — the PyTorch/CUDA port of alacjax's batched ALAC codec.
 
-The slice ported so far is the main path: single-element 16-bit layouts,
-independent full frames, the standard search and the 8-tap decode.
+Ported so far: the encode of single-element 16-bit layouts (independent
+full frames, the standard search) and the decode of every layout, depth
+and legal predictor order (the 8 -> 16 -> 30-tap retry ladder).
 Every scan runs in a hand-written CUDA kernel for Hopper
 (``alacjax_torch/csrc``) on CUDA tensors, and in its plain torch version
 (``alacjax_torch/ops``) on CPU tensors.  The package imports torch and

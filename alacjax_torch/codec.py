@@ -1,6 +1,9 @@
-"""Batched codec pipeline on torch — the port of alacjax/codec.py's main
-path: single-element 16-bit layouts (stereo CPE or mono SCE),
-independent full frames, the standard search, the 8-tap decode.
+"""Batched codec pipeline on torch — the port of alacjax/codec.py.
+Encode: single-element 16-bit layouts (stereo CPE or mono SCE),
+independent full frames, the standard search.  Decode: every layout
+(mono, stereo, 3 to 8 channels as chained SCE/CPE/LFE elements), depths
+16/20/24/32, partial frames and every legal predictor order, through
+the 8 -> 16 -> 30-tap retry ladder.
 
 Encode dataflow (alacjax.codec._encode_packet_chunks, standard branch):
 dilated mixres trial (7 stacked candidate streams per CPE, cost kernel,
@@ -10,10 +13,12 @@ segment offsets and per-element escape sizing -> headers as tiny token
 images -> Rice emission kernel -> per-element escape select -> merge
 kernel (scatter + tail OR) -> (B, W) word image.
 
-Decode dataflow (alacjax.codec.decode_frames_device, chained branch):
-static single-element header parse -> two chained channel decodes
-(decode kernel; channel 1 starts where channel 0 ends) -> unmix /
-shift-in -> escape select.
+Decode dataflow (alacjax.codec.decode_frames_device, chained branch),
+per element: header parse (static offsets for a single-element packet,
+else one window aligned to the element's per-lane start) -> chained
+channel decodes (decode kernel at 8, 16 or 30 taps; channel c+1 starts
+where channel c ends) -> unmix -> shift-byte re-insert -> escape select;
+the next element starts where this one ends.
 
 Each ``lax.cond`` of the reference is a Python ``if`` on a
 ``.any().item()``.  Tensors live on the codec's device; the kernel
@@ -39,20 +44,32 @@ from .kernels import cost as k_cost
 from .kernels import decode as k_decode
 from .kernels import emit as k_emit
 from .kernels import merge as k_merge
-from .ops import bitpack, matrix, predict
+from .ops import bitpack, fused_decode, matrix, predict
 from .ops.tutils import I32, I64, MASK32, as_i32_bits, iota1, sign_extend, u32
 from .state import init_coefs_batched
 
 DEFAULT_CHUNK = 256
 
 
-def check_config(config: AlacConfig) -> None:
-    """Raise unless the port covers this configuration yet."""
+DECODE_DEPTHS = (16, 20, 24, 32)
+
+
+def check_encode_config(config: AlacConfig) -> None:
+    """Raise unless the port's encoder covers this configuration yet."""
     if (len(config.elements) != 1 or config.bit_depth != 16
             or config.fast_mode or config.search != "standard"):
         raise AlacParamError(
-            "alacjax_torch covers single-element 16-bit layouts with the "
+            "alacjax_torch encodes single-element 16-bit layouts with the "
             "standard search; use alacjax for other configurations")
+
+
+def check_decode_config(config: AlacConfig) -> None:
+    """Raise unless the port's decoder covers this configuration: any
+    element layout, depths 16/20/24/32."""
+    if config.bit_depth not in DECODE_DEPTHS:
+        raise AlacParamError(
+            f"alacjax_torch decodes depths {DECODE_DEPTHS}, "
+            f"not {config.bit_depth}")
 
 
 # ---------------------------------------------------------------------------
@@ -233,9 +250,9 @@ def _raw_samples(e):
 def _encode_packet_chunks(pcm, config: AlacConfig, num_words: int):
     """(B, C, S) int32 planar -> ((B, W) int32 word image, (B,) total
     bits): the standard branch of alacjax's _encode_packet_chunks with
-    nums=None and banks=None, for the one element ``check_config``
-    admits (it starts at bit 0)."""
-    check_config(config)
+    nums=None and banks=None, for the one element
+    ``check_encode_config`` admits (it starts at bit 0)."""
+    check_encode_config(config)
     B = pcm.shape[0]
     dev = pcm.device
     S = config.frame_length
@@ -486,20 +503,36 @@ def _unescape_fast(words, depth: int, nch: int, S: int, partial):
     return [f[:, ci::nch] for ci in range(nch)]
 
 
-def _parse_frames(words, config: AlacConfig, num_samples: int):
-    """Header parse of a single-element packet batch: (B, W) int32 word
-    image -> dict with the u32 image ``w``, per-lane ``esc``, ``partial``,
-    ``num``, ``err``, the per-channel ``params`` (mode, den, pbf, order,
-    coefs), the Rice start ``bitpos`` and, for a CPE, ``mixbits`` and
-    ``mixres``."""
-    check_config(config)
-    S = num_samples
-    depth = config.bit_depth
-    w = u32(words)
-    (tag, width), = config.elements
-    is_cpe = width == 2
+def _unescape_window(words, pos_esc, depth: int, nch: int, S: int):
+    """Escape samples at a per-lane offset (a later element of a
+    multi-element packet): one word window aligned to phase 0, then the
+    same periodic unpack."""
+    F = nch * S
+    seg = bitpack.extract_segment(words, pos_esc, (depth * F + 31) // 32)
+    f = sign_extend(bitpack.unpack_fields(seg, depth, F), depth)
+    return [f[:, ci::nch] for ci in range(nch)]
 
-    hdr = _sfield(w, 0, 23)
+
+def _parse_element(w, bitpos, num, tag, width: int, config: AlacConfig,
+                   S: int, max_ord: int, fast_hdr: bool):
+    """Header parse of one element (alacjax.codec.decode_frames_device's
+    per-element loop): ``w`` is the (B, W) u32 image, ``bitpos`` the
+    per-lane element start, ``num`` the frame length of the packet's
+    first element (None for the first).  A single-element packet is read
+    at static offsets; otherwise one window aligned to the element
+    carries the same static parse.  Returns a dict with ``esc``,
+    ``partial``, ``num``, ``err``, the per-channel ``params`` (mode, den,
+    pbf, order, coefs), ``pos_esc`` (the raw block of an escape lane),
+    ``pos_shift`` (the shift-byte block), ``rice`` (the first channel's
+    Rice start) and, for a CPE, ``mixbits`` and ``mixres``."""
+    depth = config.bit_depth
+    is_cpe = width == 2
+    if fast_hdr:
+        hdr = _sfield(w, 0, 23)
+        nsf = _sfield(w, 23, 32)
+    else:
+        hdr = fused_decode._read_bits(w, bitpos, 23)
+        nsf = fused_decode._read_bits(w, bitpos + 23, 32)
     rtag = hdr >> 20
     unused = (hdr >> 4) & 0xFFF
     partial = ((hdr >> 3) & 1) == 1
@@ -509,85 +542,129 @@ def _parse_frames(words, config: AlacConfig, num_samples: int):
     err = ((rtag != int(tag)) | (unused != 0)
            | (~esc & (bs_f != bs)) | (esc & (bs_f != 0)))
 
-    # partial (tail) frames: 32-bit numSamples right after the header
-    nsf = _sfield(w, 23, 32)
+    # partial (tail) frames: 32-bit numSamples right after the header;
+    # the elements of one packet must agree on it
     bad_num = partial & ((nsf == 0) | (nsf > S))
-    num = torch.where(partial & ~bad_num, nsf, S)
+    num_el = torch.where(partial & ~bad_num, nsf, S)
     err = err | bad_num
-    pos_esc = 23 + torch.where(partial, 32, 0)
+    if num is None:
+        num = num_el
+    else:
+        err = err | (num_el != num)
+    pos_esc = bitpos + 23 + torch.where(partial, 32, 0)
 
-    # partial lanes' fields sit exactly one word later
-    ncol = 61
-    wpad = (w if w.shape[1] >= ncol + 1
-            else torch.nn.functional.pad(w, (0, ncol + 1 - w.shape[1])))
-    w_hdr = torch.where(partial[:, None], wpad[:, 1:ncol + 1], wpad[:, :ncol])
-    out = dict(w=w, esc=esc, partial=partial, num=num)
+    if fast_hdr:
+        # partial lanes' fields sit exactly one word later
+        ncol = 61
+        wpad = (w if w.shape[1] >= ncol + 1
+                else torch.nn.functional.pad(w, (0, ncol + 1 - w.shape[1])))
+        w_hdr = torch.where(partial[:, None], wpad[:, 1:ncol + 1],
+                            wpad[:, :ncol])
+    else:
+        # the element sans the partial field, aligned to bit 0
+        deep = 39 + 16 + 16 * ((31 + max_ord if is_cpe else max_ord) + 1)
+        w_hdr = u32(bitpack.extract_segment(w, pos_esc - 23, deep // 32 + 2))
+    out = dict(esc=esc, partial=partial, num=num, pos_esc=pos_esc)
     if is_cpe:
         mixtok = _sfield(w_hdr, 23, 16)
         out["mixbits"] = torch.where(esc, 0, mixtok >> 8)
         out["mixres"] = torch.where(esc, 0, sign_extend(mixtok & 0xFF, 8))
-    params, end_rel, perr = _decode_params_static(w_hdr, is_cpe)
+    params, end_rel, perr = _decode_params_static(w_hdr, is_cpe, max_ord)
     out["params"] = params
     out["err"] = err | (~esc & perr)
-    bitpos = torch.where(esc, pos_esc, pos_esc - 23 + end_rel)
-    out["bitpos"] = bitpos + torch.where(esc, 0, width * 8 * bs * num)
+    pos_shift = torch.where(esc, pos_esc, pos_esc - 23 + end_rel)
+    out["pos_shift"] = pos_shift
+    out["rice"] = pos_shift + torch.where(esc, 0, width * 8 * bs * num)
     return out
 
 
 def _channel_args(p, ci: int, config: AlacConfig):
     """Per-lane decode-kernel arguments of channel ``ci`` from
-    _parse_frames' result, as int32 tensors: (pb, coefs0, mode, order,
+    _parse_element's result, as int32 tensors: (pb, coefs0, mode, order,
     denshift).  Escape lanes carry garbage header fields; their order is
-    normalized to 0 so they cannot flag the 8-tap bound."""
+    normalized to 0 so they cannot flag the walk's tap bound."""
     mode, den, pbf, order, coefs = p["params"][ci]
     order = torch.where(p["esc"], 0, order)
     return tuple(a.to(I32).contiguous() for a in (
         (config.pb * pbf) // 4, coefs, mode, order, den))
 
 
-def decode_frames_device(words, config: AlacConfig, num_samples: int):
+def _shift_bytes(words, pos_shift, width: int, S: int, bs: int):
+    """The element's shift-byte block: ``width`` channel-interleaved
+    8*bs-bit fields per sample at a per-lane offset -> per-channel (B, S)
+    low bytes."""
+    d = 8 * bs
+    seg = bitpack.extract_segment(words, pos_shift, (width * S * d + 31) // 32)
+    sf = bitpack.unpack_fields(seg, d, width * S).reshape(-1, S, width)
+    return [sf[:, :, ci] for ci in range(width)]
+
+
+def decode_frames_device(words, config: AlacConfig, num_samples: int,
+                         taps: int = fused_decode.TAPS):
     """(B, W) int32 word image -> ((B, C, S) int32 pcm, (B,) bool err,
-    (B,) int32 num): the chained single-element branch of
-    alacjax.codec.decode_frames_device with taps=8."""
+    (B,) int32 num): the chained branch of
+    alacjax.codec.decode_frames_device, every layout and depth.  ``taps``
+    (8, 16 or 30) is the width of the channel scans' FIR walk; lanes
+    with a higher order flag err."""
     B = words.shape[0]
     dev = words.device
     S = num_samples
     depth = config.bit_depth
     kb = config.kb
-    (_, width), = config.elements
-    is_cpe = width == 2
-    chanbits = depth + (1 if is_cpe else 0)
+    bs = bytes_shifted_for_depth(depth)
+    # the parse accepts orders up to the walk's width, never below 16
+    max_ord = max(kALACMaxCoefs, taps)
+    fast_hdr = len(config.elements) == 1
     words_i32 = words.to(I32).contiguous()
-    p = _parse_frames(words_i32, config, S)
-    esc, num, err, bitpos = p["esc"], p["num"], p["err"], p["bitpos"]
+    w = u32(words_i32)
+    bitpos = torch.zeros((B,), dtype=I64, device=dev)
+    err = torch.zeros((B,), dtype=torch.bool, device=dev)
+    num = None
+    out_ch = []
+    for tag, width in config.elements:
+        is_cpe = width == 2
+        p = _parse_element(w, bitpos, num, tag, width, config, S, max_ord,
+                           fast_hdr)
+        esc, num = p["esc"], p["num"]
+        err = err | p["err"]
+        chanbits = depth - 8 * bs + (1 if is_cpe else 0)
+        bitpos = p["rice"]
 
-    if bool(esc.all().item()):
-        dec = [torch.zeros((B, S), dtype=I32, device=dev)] * width
-    else:
-        # chained channel scans: channel c+1 starts where channel c ends
-        num_i32 = num.to(I32).contiguous()
-        recon = []
-        for ci in range(width):
-            pb, coefs, mode, order, den = _channel_args(p, ci, config)
-            samples, bitpos_n, rerr = k_decode.decode_channel(
-                words_i32, bitpos.to(I32).contiguous(), S, chanbits,
-                config.mb, pb, kb, (1 << kb) - 1, coefs, mode, order, den,
-                num=num_i32)
-            bitpos = torch.where(esc, bitpos, bitpos_n.to(I64))
-            err = err | (~esc & rerr)
-            recon.append(samples)
-        if is_cpe:
-            dec = list(matrix.unmix(recon[0], recon[1],
-                                    p["mixbits"][:, None],
-                                    p["mixres"][:, None]))
+        if bool(esc.all().item()):
+            dec = [torch.zeros((B, S), dtype=I32, device=dev)] * width
         else:
+            # chained channel scans: channel c+1 starts where channel c ends
+            num_i32 = num.to(I32).contiguous()
+            recon = []
+            for ci in range(width):
+                pb, coefs, mode, order, den = _channel_args(p, ci, config)
+                samples, bitpos_n, rerr = k_decode.decode_channel(
+                    words_i32, bitpos.to(I32).contiguous(), S, chanbits,
+                    config.mb, pb, kb, (1 << kb) - 1, coefs, mode, order,
+                    den, num=num_i32, taps=taps)
+                bitpos = torch.where(esc, bitpos, bitpos_n.to(I64))
+                err = err | (~esc & rerr)
+                recon.append(samples)
+            if is_cpe:
+                recon = list(matrix.unmix(recon[0], recon[1],
+                                          p["mixbits"][:, None],
+                                          p["mixres"][:, None]))
+            if bs:
+                shifts = _shift_bytes(words_i32, p["pos_shift"], width, S, bs)
+                recon = [matrix.shift_in(r, sh, bs)
+                         for r, sh in zip(recon, shifts)]
             dec = recon
 
-    if bool(esc.any().item()):
-        raws = _unescape_fast(p["w"], depth, width, S, p["partial"])
-        dec = [torch.where(esc[:, None], raws[ci].to(I32), dec[ci])
-               for ci in range(width)]
-    pcm = torch.stack(dec, dim=1)
+        if bool(esc.any().item()):
+            raws = (_unescape_fast(w, depth, width, S, p["partial"])
+                    if fast_hdr else
+                    _unescape_window(words_i32, p["pos_esc"], depth, width, S))
+            dec = [torch.where(esc[:, None], raws[ci].to(I32), dec[ci])
+                   for ci in range(width)]
+        out_ch.extend(dec)
+        bitpos = torch.where(esc, p["pos_esc"] + width * depth * num, bitpos)
+
+    pcm = torch.stack(out_ch, dim=1)
     if bool((num < S).any().item()):
         pcm = torch.where(iota1(S, device=dev)[None, None, :]
                           < num[:, None, None], pcm, 0)
@@ -599,11 +676,13 @@ def decode_frames_device(words, config: AlacConfig, num_samples: int):
 # ---------------------------------------------------------------------------
 class TorchCodec:
     """Batched codec for one AlacConfig on one torch device: encode and
-    decode whole chunks of frames per call."""
+    decode whole chunks of frames per call.  Every configuration the
+    decoder covers constructs; ``encode_frames`` raises AlacParamError
+    for one the encoder does not cover yet."""
 
     def __init__(self, config: AlacConfig, chunk: int = DEFAULT_CHUNK,
                  device="cpu"):
-        check_config(config)
+        check_decode_config(config)
         self.config = config
         self.chunk = chunk
         self.device = torch.device(device)
@@ -615,10 +694,10 @@ class TorchCodec:
         """(B, C, S) int32 device tensor -> (words, total_bits) tensors."""
         return encode_frames_device(pcm, self.config, self.num_words)
 
-    def _decode(self, words):
+    def _decode(self, words, taps: int = fused_decode.TAPS):
         """(B, W) int32 device tensor -> (pcm, err, num) tensors."""
         return decode_frames_device(words, self.config,
-                                    self.config.frame_length)
+                                    self.config.frame_length, taps=taps)
 
     def encode_frames(self, pcm: np.ndarray) -> list[bytes]:
         """(nf, C, S) planar int -> list of nf packets."""
@@ -640,8 +719,10 @@ class TorchCodec:
     def decode_frames_ex(self, packets: list[bytes]
                          ) -> tuple[np.ndarray, np.ndarray]:
         """list of packets -> ((nf, C, S) planar int64, (nf,) sample
-        counts).  Lanes the device flags (frames outside its grammar)
-        decode on the scalar oracle."""
+        counts).  When many lanes of a chunk are flagged (the usual sign
+        of a legal stream of order above 8), the chunk decodes again at
+        16 and then 30 taps; lanes still flagged (frames outside the
+        device grammar) decode on the scalar oracle."""
         cfg = self.config
         S = cfg.frame_length
         nf = len(packets)
@@ -657,6 +738,16 @@ class TorchCodec:
             out[off:off + n] = pcm[:n].cpu().numpy()
             nums[off:off + n] = num[:n].cpu().numpy()
             err = err[:n].cpu().numpy()
+            # the retry rule and threshold of alacjax's JaxCodec: a few
+            # flagged lanes (corruption) go straight to the oracle
+            for retry_taps in fused_decode.LADDER_TAPS:
+                if err.any() and err.sum() * 4 >= n and n >= 64:
+                    pcm_r, err_r, num_r = self._decode(wdev, taps=retry_taps)
+                    fixed = np.nonzero(err & ~err_r[:n].cpu().numpy())[0]
+                    idx = torch.from_numpy(fixed).to(self.device)
+                    out[off + fixed] = pcm_r[idx].cpu().numpy()
+                    nums[off + fixed] = num_r[idx].cpu().numpy()
+                    err[fixed] = False
             self.fallback_frames += int(err.sum())
             if err.any():
                 dec = OracleDecoder(cfg)

@@ -1,31 +1,40 @@
 // Fused channel decode: adaptive-Rice codewords and zero runs, the
-// mode != 0 first-difference stage and the 8-tap adaptive FIR, one sample
-// per substep, a whole channel per launch.
+// mode != 0 first-difference stage and the TAPS-wide adaptive FIR, one
+// sample per substep, a whole channel per launch.  One source, three
+// instances: TAPS = 8 (the production program), 16 and 30 (the codec's
+// retry ladder; 30 covers every legal 5-bit order).
 //
-// Replaces: alacjax/ops/pallas/decode_step.py :: _step_kernel (pallas_call
-// in decode_step_pallas, one launch per scan step of G substeps plus the
-// cache shift) and takes over the whole-loop job of the parked
-// decode_pallas.py :: _decode_kernel.  Plain version:
-// alacjax_torch/ops/fused_decode.py :: decode_channel.
+// Replaces, at TAPS = 8: alacjax/ops/pallas/decode_step.py :: _step_kernel
+// (pallas_call in decode_step_pallas, one launch per scan step of G
+// substeps plus the cache shift).  At TAPS = 16 and 30:
+// alacjax/ops/pallas/decode_pallas.py :: _decode_kernel (the whole-loop
+// decode at a static tap count with per-lane chanbits, decode_pallas.py
+// :381).  Plain version: alacjax_torch/ops/fused_decode.py ::
+// decode_channel.
 //
 // Bound: the per-lane serial bit cursor (each codeword's position depends
 // on every earlier length) and the FIR recurrence, so the latency of one
 // lane's chain; there are only B lanes per channel (4096 = 128 warps at
-// B=4096), too few to fill the card's 132 SMs x 4 schedulers.
+// B=4096), too few to fill the card's 132 SMs x 4 schedulers.  The walk
+// costs TAPS multiply-adds and TAPS adaptation steps per sample whatever
+// the lane's order, so the 30-tap instance does about 4x the 8-tap work.
 //
 // Design: one thread per lane runs all S substeps with the Rice state,
-// lags and coefficients in registers.  On the TPU a lane's bits arrive
-// through a row-prefetched sliding cache with a drift budget; here a
-// thread reads its own words directly through the read-only cache, by an
-// index clamped to the image, so there is no refill, no cache shift and
-// no underrun flag.  Samples are written (S, B) so a warp's stores
-// coalesce; end bits and the error flag (zero-run overrun, or an order
-// the 8-tap walk does not cover) come out per lane.
+// the TAPS+1 lags and the TAPS coefficients in registers, walked by fully
+// unrolled predicate chains (every array index is a compile-time
+// constant, so nothing goes to local memory unless ptxas spills).  On the
+// TPU a lane's bits arrive through a row-prefetched sliding cache with a
+// drift budget; here a thread reads its own words directly through the
+// read-only cache, by an index clamped to the image, so there is no
+// refill, no cache shift and no underrun flag.  chanbits is per lane (a
+// stacked batch may mix SCE and CPE channels of several depths).  Samples
+// are written (S, B) so a warp's stores coalesce; end bits and the error
+// flag (zero-run overrun, or an order the walk does not cover) come out
+// per lane.
 #include "common.cuh"
 
 namespace alac {
 
-constexpr int TAPS = 8;
 constexpr int MAX_TAPS = 30;
 
 __device__ __forceinline__ unsigned read32(const unsigned* __restrict__ row,
@@ -53,10 +62,12 @@ __device__ __forceinline__ void codeword(unsigned stream, int k, int& pre,
     v = body >> ((32 - k) & 31);
 }
 
+template <int TAPS>
 __global__ void decode_kernel(const unsigned* __restrict__ words,
                               const int* __restrict__ start_bits,
+                              const int* __restrict__ chanbits,
                               const int* __restrict__ pb_lane,
-                              const int* __restrict__ coefs0,
+                              const int* __restrict__ coefs0, int coef_n,
                               const int* __restrict__ mode,
                               const int* __restrict__ numactive,
                               const int* __restrict__ denshift,
@@ -64,10 +75,11 @@ __global__ void decode_kernel(const unsigned* __restrict__ words,
                               int* __restrict__ samples_t,
                               int* __restrict__ end_bits,
                               int* __restrict__ err_out, int B, int W, int S,
-                              int cb, unsigned mb0, int kb, unsigned wb) {
+                              unsigned mb0, int kb, unsigned wb) {
     const int lane = blockIdx.x * blockDim.x + threadIdx.x;
     if (lane >= B) return;
     const unsigned* row = words + (size_t)lane * W;
+    const int cb = chanbits[lane];
     const int n_eff = num ? num[lane] : S;
     const unsigned pb = (unsigned)pb_lane[lane];
     const int na = numactive[lane];
@@ -86,7 +98,8 @@ __global__ void decode_kernel(const unsigned* __restrict__ words,
 #pragma unroll
     for (int i = 0; i <= TAPS; ++i) lags[i] = 0;
 #pragma unroll
-    for (int k = 0; k < TAPS; ++k) coefs[k] = coefs0[(size_t)lane * 16 + k];
+    for (int k = 0; k < TAPS; ++k)
+        coefs[k] = k < coef_n ? coefs0[(size_t)lane * coef_n + k] : 0;
     int s1_acc = 0, acc31 = 0;
 
     for (int i = 0; i < S; ++i) {
@@ -176,10 +189,11 @@ __global__ void decode_kernel(const unsigned* __restrict__ words,
         else
             out = sext(wadd(wadd(x_t, top), pred_adj), cb);
 
+        // sign-sign adaptation from the last tap down, in place: tap kk's
+        // coefficient is read only by its own step of this walk
         const bool adapt = active && !in_warm;
         const int sg = sign_of(x_t);
         int del0 = x_t;
-        int new_coefs[TAPS];
 #pragma unroll
         for (int kk = TAPS - 1; kk >= 0; --kk) {
             const bool going = sg > 0 ? del0 > 0 : del0 < 0;
@@ -187,7 +201,7 @@ __global__ void decode_kernel(const unsigned* __restrict__ words,
             const int dd = wsub(top, lags[kk]);
             const int sgn = sign_of(dd);
             const int upd = sg > 0 ? -sgn : sgn;
-            new_coefs[kk] = sext(wadd(coefs[kk], act_k ? upd : 0), 16);
+            if (active) coefs[kk] = sext(wadd(coefs[kk], act_k ? upd : 0), 16);
             const int mag = wmul(sgn, dd);
             const int term = sg > 0 ? (mag >> den) : (wneg(mag) >> den);
             if (act_k) del0 = wsub(del0, wmul(na_k - kk, term));
@@ -205,8 +219,6 @@ __global__ void decode_kernel(const unsigned* __restrict__ words,
 #pragma unroll
             for (int j = TAPS; j > 0; --j) lags[j] = lags[j - 1];
             lags[0] = out;
-#pragma unroll
-            for (int kk = 0; kk < TAPS; ++kk) coefs[kk] = new_coefs[kk];
             c += 1;
         }
         s1_acc = s1_acc2;
@@ -216,21 +228,44 @@ __global__ void decode_kernel(const unsigned* __restrict__ words,
     err_out[lane] = (err || (na > TAPS && na != 31)) ? 1 : 0;
 }
 
+template <int TAPS>
+int launch(const int* words, const int* start_bits, const int* chanbits,
+           const int* pb, const int* coefs0, int coef_n, const int* mode,
+           const int* numactive, const int* denshift, const int* num,
+           int* samples_t, int* end_bits, int* err, int B, int W, int S,
+           unsigned mb0, int kb, unsigned wb, cudaStream_t stream) {
+    const int threads = 32;
+    decode_kernel<TAPS><<<(B + threads - 1) / threads, threads, 0, stream>>>(
+        (const unsigned*)words, start_bits, chanbits, pb, coefs0, coef_n,
+        mode, numactive, denshift, num, samples_t, end_bits, err, B, W, S,
+        mb0, kb, wb);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace alac
 
+// taps selects the instance (8, 16 or 30); every lane's chanbits must lie
+// in 1..chanbits_max, and chanbits_max in 1..32.
 extern "C" int alac_decode(const int* words, const int* start_bits,
-                           const int* pb, const int* coefs0, const int* mode,
+                           const int* chanbits, const int* pb,
+                           const int* coefs0, int coef_n, const int* mode,
                            const int* numactive, const int* denshift,
                            const int* num, int* samples_t, int* end_bits,
-                           int* err, int B, int W, int S, int chanbits,
-                           unsigned mb0, int kb, unsigned wb, void* stream) {
+                           int* err, int B, int W, int S, int taps,
+                           int chanbits_max, unsigned mb0, int kb,
+                           unsigned wb, void* stream) {
     if (B <= 0) return (int)cudaGetLastError();
-    if (W <= 0 || chanbits < 1 || chanbits > 32) return (int)cudaErrorInvalidValue;
-    const int threads = 32;
-    alac::decode_kernel<<<(B + threads - 1) / threads, threads, 0,
-                          (cudaStream_t)stream>>>(
-        (const unsigned*)words, start_bits, pb, coefs0, mode, numactive,
-        denshift, num, samples_t, end_bits, err, B, W, S, chanbits, mb0, kb,
-        wb);
-    return (int)cudaGetLastError();
+    if (W <= 0 || coef_n < 0 || chanbits_max < 1 || chanbits_max > 32)
+        return (int)cudaErrorInvalidValue;
+    const cudaStream_t st = (cudaStream_t)stream;
+#define ALAC_DECODE_ARGS                                                    \
+    words, start_bits, chanbits, pb, coefs0, coef_n, mode, numactive,      \
+        denshift, num, samples_t, end_bits, err, B, W, S, mb0, kb, wb, st
+    switch (taps) {
+        case 8: return alac::launch<8>(ALAC_DECODE_ARGS);
+        case 16: return alac::launch<16>(ALAC_DECODE_ARGS);
+        case 30: return alac::launch<30>(ALAC_DECODE_ARGS);
+        default: return (int)cudaErrorInvalidValue;
+    }
+#undef ALAC_DECODE_ARGS
 }

@@ -4,15 +4,16 @@ One wrapper per kernel (cost, emit, merge, decode).  A wrapper checks
 its inputs, allocates its outputs, and for CUDA tensors launches its
 kernel (or raises — there is no fallback); for CPU tensors it runs the
 plain torch version from ``alacjax_torch.ops``.  ``LAUNCHES`` counts
-kernel launches per wrapper, so a run can show that the main path went
-through the kernels.
+kernel launches, so a run can show that a path went through the
+kernels: the decode wrapper counts its 8-tap instance under ``decode``
+and its 16/30-tap instances under ``decode_hi``.
 """
 
 from __future__ import annotations
 
 import torch
 
-LAUNCHES = {"cost": 0, "emit": 0, "merge": 0, "decode": 0}
+LAUNCHES = {"cost": 0, "emit": 0, "merge": 0, "decode": 0, "decode_hi": 0}
 
 
 def reset_launches() -> None:

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-All ``alacjax_torch/csrc/*.cu`` compile with nvcc into ONE shared
-library with a plain C interface, loaded with ctypes (no PyTorch headers,
-so a build takes seconds, not minutes).  The build happens at first use,
-into ``build/alacjax_torch/<hash>/`` at the repository root, keyed by a
-hash of the sources and flags; a finished library is reused.
+Each ``alacjax_torch/csrc/*.cu`` compiles with its own nvcc process, all
+started together, and the objects link into ONE shared library with a
+plain C interface, loaded with ctypes (no PyTorch headers, so a build
+takes seconds, not minutes).  The build happens at first use, into
+``build/alacjax_torch/<hash>/`` at the repository root, keyed by a hash
+of the sources and flags; a finished library is reused.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` raises on anything but 0.
@@ -26,7 +27,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "alacjax_torch")
 NVCC_CANDIDATES = ("/usr/local/cuda/bin/nvcc",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,14 +39,14 @@ SIGNATURES = {
     "alac_emit": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _U, _I,
                   _U, _P],
     "alac_merge": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "alac_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                    _I, _U, _I, _U, _P],
+    "alac_decode": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                    _I, _I, _I, _I, _U, _I, _U, _P],
 }
 
 _lock = threading.Lock()
 _lib = None
 build_seconds = None     # wall time of the build (or load) that ran here
-build_log = ""           # nvcc's stderr (-Xptxas -v register report)
+build_log = ""           # nvcc's stderr per source (-Xptxas -v report)
 
 
 def _sources() -> list[str]:
@@ -70,6 +71,26 @@ def _key() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds: list[list[str]]) -> list[subprocess.CompletedProcess]:
+    """Run the commands side by side; kill any still running if one
+    times out or the caller is interrupted."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    try:
+        done = []
+        for cmd, p in zip(cmds, procs):
+            out, err = p.communicate(timeout=900)
+            done.append(subprocess.CompletedProcess(cmd, p.returncode,
+                                                    out, err))
+        return done
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
 def _build(out_dir: str) -> str:
     lib_path = os.path.join(out_dir, "libalacjax_torch.so")
     if os.path.exists(lib_path):
@@ -77,16 +98,27 @@ def _build(out_dir: str) -> str:
     global build_log
     nvcc = _nvcc()
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    tag = f"{os.getpid()}.tmp"
     cus = [p for p in _sources() if p.endswith(".cu")]
-    cmd = [nvcc] + NVCC_FLAGS + ["-o", tmp] + cus
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    build_log = proc.stderr
+    objs = [os.path.join(out_dir, os.path.basename(cu) + f".{tag}.o")
+            for cu in cus]
+    compiled = _run_all([[nvcc] + NVCC_FLAGS + ["-c", "-o", obj, cu]
+                         for cu, obj in zip(cus, objs)])
+    build_log = "".join(f"== {os.path.basename(cu)}\n{p.stderr}"
+                        for cu, p in zip(cus, compiled))
+    tmp = f"{lib_path}.{tag}"
+    procs = compiled
+    if all(p.returncode == 0 for p in compiled):
+        procs = procs + _run_all([[nvcc, "-shared", "-o", tmp] + objs])
     with open(os.path.join(out_dir, "build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
+        for p in procs:
+            f.write(" ".join(p.args) + "\n" + p.stdout + p.stderr)
+    for p in procs:
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(p.args)}\n{p.stderr[-4000:]}")
+    for obj in objs:
+        os.remove(obj)
     os.replace(tmp, lib_path)      # atomic: concurrent builds agree
     return lib_path
 

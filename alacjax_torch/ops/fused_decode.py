@@ -5,16 +5,18 @@ cascade).
 
 Every substep decodes one Rice residual (or consumes one sample of a
 pending zero run), feeds it through the first-difference stage
-(mode != 0) and the 8-tap adaptive FIR, and emits the reconstructed
-sample — exactly alacjax's ``_rice_substep`` + ``_substep_core``.
+(mode != 0) and the ``taps``-wide adaptive FIR, and emits the
+reconstructed sample — exactly alacjax's ``_rice_substep`` +
+``_substep_core``.  ``taps`` is 8 on the production program and 16 or
+30 on the codec's retry ladder.
 
 What the port drops: the TPU reads its bits through a sliding cache
 refilled one row per scan step, with a drift budget whose underrun
 flags a lane.  Here a lane reads its words directly, by an index
 clamped to the image, so there is no refill, no cache shift and no
-underrun flag; ``err`` is the zero-run overrun or an order the 8-tap
-walk does not cover.  This Python loop is the plain version the decode
-kernel (alacjax_torch/kernels/decode.py) is held to.
+underrun flag; ``err`` is the zero-run overrun or an order the walk does
+not cover.  This Python loop is the plain version the decode kernels
+(alacjax_torch/kernels/decode.py) are held to.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from alacjax.types import (
 from .tutils import I32, I64, MASK32, clz32, iota1, sign_extend, u32, wrap_i32
 
 TAPS = 8                # the production FIR walk (fused_decode taps=8)
+LADDER_TAPS = (16, 30)  # the codec's retry programs
 _MAX_TAPS = 30          # largest 5-bit order that is not the mode-31 special
 
 
@@ -44,9 +47,10 @@ def _read32(words, bitpos):
                        ((a << sh) & MASK32) | (b >> ((32 - sh) & 31)))
 
 
-def _read_bits(words, bitpos, nbits: int):
-    return _read32(words, bitpos) >> ((32 - nbits) & 31) & (
-        MASK32 if nbits >= 32 else (1 << nbits) - 1)
+def _read_bits(words, bitpos, nbits):
+    """``nbits`` (1..32, an int or per-lane) bits at per-lane ``bitpos``."""
+    one = 1 if isinstance(nbits, int) else torch.ones_like(nbits)
+    return _read32(words, bitpos) >> ((32 - nbits) & 31) & ((one << nbits) - 1)
 
 
 def _codeword(stream, k):
@@ -58,33 +62,48 @@ def _codeword(stream, k):
     return pre, v
 
 
-def decode_channel(words, start_bits, num_samples: int, chanbits: int,
+def coef_table(coefs0, taps: int):
+    """(B, n) coefficient table -> (B, taps): cut, or padded with zeros
+    (lanes whose order exceeds the table flag err anyway)."""
+    n = coefs0.shape[1]
+    return (coefs0[:, :taps] if n >= taps
+            else torch.nn.functional.pad(coefs0, (0, taps - n)))
+
+
+def decode_channel(words, start_bits, num_samples: int, chanbits,
                    mb0: int, pb, kb: int, wb: int, coefs0, mode, numactive,
-                   denshift, num=None):
+                   denshift, num=None, taps: int = TAPS,
+                   chanbits_max: int | None = None):
     """Decode + reconstruct one channel: (B, W) words -> (B, S) samples.
 
-    start_bits/pb/coefs0/mode/numactive/denshift are per-lane tensors;
-    chanbits is static.  ``num`` (per-lane, <= S) decodes only the first
-    num samples of each lane.  Returns (samples (B, S) int32, end_bits
-    (B,) int32, err (B,) bool).  Lanes with an order above the 8-tap
-    walk (other than 31) flag err."""
+    start_bits/pb/coefs0/mode/numactive/denshift are per-lane tensors.
+    ``chanbits`` is an int or a per-lane (B,) tensor whose values are at
+    most ``chanbits_max`` (only the kernel reads the bound).  ``num``
+    (per-lane, <= S) decodes only the first num samples of each lane.
+    ``taps`` (1..30) is the width of the FIR walk.  Returns (samples
+    (B, S) int32, end_bits (B,) int32, err (B,) bool).  Lanes with an
+    order above the walk (other than 31) flag err."""
+    if not 1 <= taps <= _MAX_TAPS:
+        raise ValueError(f"taps must be in 1..{_MAX_TAPS}, got {taps}")
     B, W = words.shape
     S = num_samples
     dev = words.device
     words = u32(words)
+    if not isinstance(chanbits, int):
+        chanbits = chanbits.to(I64)
     n_eff = (torch.full((B,), S, dtype=I64, device=dev) if num is None
              else num.to(I64))
     pb_v = pb.to(I64)
     na = numactive.to(I64)
-    na_k = torch.clamp(torch.clamp(na, 1, _MAX_TAPS), max=TAPS)
+    na_k = torch.clamp(torch.clamp(na, 1, _MAX_TAPS), max=taps)
     den = torch.clamp(denshift.to(I64), min=1)
     denhalf = 1 << (den - 1)
     mode_nz = mode.to(I64) != 0
     is0 = na == 0
     is31 = na == 31
-    taps = iota1(TAPS, device=dev)[None, :]
-    tap_on = taps < na_k[:, None]            # the taps this lane's walk uses
-    weight = na_k[:, None] - taps            # (na - k): a tap's step weight
+    tap = iota1(taps, device=dev)[None, :]
+    tap_on = tap < na_k[:, None]             # the taps this lane's walk uses
+    weight = na_k[:, None] - tap             # (na - k): a tap's step weight
 
     zero = torch.zeros((B,), dtype=I64, device=dev)
     bitpos = start_bits.to(I64)
@@ -93,8 +112,8 @@ def decode_channel(words, start_bits, num_samples: int, chanbits: int,
     run_rem = zero
     c = zero
     err = torch.zeros((B,), dtype=torch.bool, device=dev)
-    lags = torch.zeros((B, TAPS + 1), dtype=I64, device=dev)
-    coefs = coefs0[:, :TAPS].to(I64)
+    lags = torch.zeros((B, taps + 1), dtype=I64, device=dev)
+    coefs = coef_table(coefs0, taps).to(I64)
     s1_acc = zero
     acc31 = zero
     outs = []
@@ -165,7 +184,7 @@ def decode_channel(words, start_bits, num_samples: int, chanbits: int,
         x_t = torch.where(mode_nz, sign_extend(s1_acc2, chanbits), res)
         top = torch.gather(lags, 1, na_k[:, None])[:, 0]
         in_warm = c <= na_k
-        diff = lags[:, :TAPS] - top[:, None]
+        diff = lags[:, :taps] - top[:, None]
         sum1 = denhalf + torch.where(tap_on, coefs * diff, 0).sum(dim=1)
         pred_adj = wrap_i32(sum1) >> den
         out_gen = sign_extend(x_t + top + pred_adj, chanbits)
@@ -173,7 +192,10 @@ def decode_channel(words, start_bits, num_samples: int, chanbits: int,
         out = torch.where(c == 0, x_t, torch.where(in_warm, out_warm, out_gen))
 
         # sign-sign adaptation, from the last tap down; a tap acts only
-        # while the error keeps its side (dp_dec.c early exit)
+        # while the error keeps its side (dp_dec.c early exit).  Tap k
+        # sees the error less the steps of every acting tap above it, so
+        # the walk is a reversed cumulative sum of the steps, cut at the
+        # first tap that finds the error on the wrong side.
         sg = torch.sign(x_t)
         pos = (sg > 0)[:, None]
         dd = wrap_i32(-diff)
@@ -182,13 +204,13 @@ def decode_channel(words, start_bits, num_samples: int, chanbits: int,
         step = weight * torch.where(pos, mag >> den[:, None],
                                     wrap_i32(-mag) >> den[:, None])
         can = tap_on & (active & ~in_warm & (sg != 0))[:, None]
-        del0 = x_t
-        acts = [None] * TAPS
-        for kk in range(TAPS - 1, -1, -1):
-            acts[kk] = can[:, kk] & (torch.sign(del0) == sg)
-            del0 = wrap_i32(del0 - torch.where(acts[kk], step[:, kk], 0))
-        upd = torch.where(torch.stack(acts, dim=1),
-                          torch.where(pos, -sgn, sgn), 0)
+        step_c = torch.where(can, step, 0)
+        above = torch.flip(torch.cumsum(torch.flip(step_c, [1]), 1), [1]) - step_c
+        err_k = wrap_i32(x_t[:, None] - above)     # the error tap k sees
+        ok = ~can | (torch.sign(err_k) == sg[:, None])
+        still = torch.flip(torch.cumprod(torch.flip(ok.to(I64), [1]), 1), [1])
+        acts = can & (still == 1)
+        upd = torch.where(acts, torch.where(pos, -sgn, sgn), 0)
         new_coefs = sign_extend(coefs + upd, 16)
 
         # special-mode overlays (mode 0: pass-through; mode 31: cumsum)
@@ -198,12 +220,12 @@ def decode_channel(words, start_bits, num_samples: int, chanbits: int,
         outs.append(out)
 
         on = active[:, None]
-        lags = torch.where(on, torch.cat([out[:, None], lags[:, :TAPS]], 1),
+        lags = torch.where(on, torch.cat([out[:, None], lags[:, :taps]], 1),
                            lags)
         coefs = torch.where(on, new_coefs, coefs)
         s1_acc, acc31 = s1_acc2, acc31_2
         c = torch.where(active, c1, c)
 
-    big = (na > TAPS) & (na != 31)
+    big = (na > taps) & (na != 31)
     samples = torch.stack(outs, dim=1).to(I32)
     return samples, bitpos.to(I32), err | big

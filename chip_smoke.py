@@ -5,23 +5,41 @@
 
 Phases, each of which exits nonzero on failure:
   1. the card's name and power limit (nvidia-smi); no CUDA -> exit 1;
-  2. build the four CUDA kernels from alacjax_torch/csrc (nvcc, sm_90a);
-  3. one device-resident encode + decode of the bench corpus
-     (bench.py :: make_music, B=4096 frames of 16-bit stereo, S=4096)
-     records every kernel call of the main path; each call is then run
-     again through its kernel and through its plain torch version on the
-     card, on the same inputs: the results must be exactly equal;
+  2. build the CUDA kernels from alacjax_torch/csrc (one nvcc per source,
+     all started together, sm_90a) and print ptxas's registers and
+     spills for each kernel instance;
+  3. kernels against their plain torch versions on the card, on recorded
+     inputs: every kernel call of one device-resident encode + decode of
+     the phase-4 corpus, and one call per distinct (taps, chanbits) of
+     the phase-5 and phase-6 decodes; the results must be exactly equal;
   4. the main path: TorchCodec encode_frames -> decode_frames_ex on the
-     same corpus: lossless, no frame flagged, the first 256 packets
+     bench corpus (bench.py :: make_music, B=4096 frames of 16-bit
+     stereo, S=4096): lossless, no frame flagged, the first 256 packets
      byte-identical to the native C++ encoder, every kernel launched;
      encode/decode seconds and frames/s, then the device-resident steady
-     state (PCM and words stay on the card) with its peak memory.
-The line before the last is a JSON object of per-kernel results ("ms"
-and "plain_ms" sum a kernel's calls in one batch); the last line is the
-JSON result line.  ``--profile DIR`` also writes a torch.profiler table
-of one device-resident encode + decode to DIR/profile.txt.
+     state (PCM and words stay on the card) with its peak memory;
+  5. layouts and depths: decode_frames_ex of B=4096 packets of 24-bit
+     5.1 (SCE, CPE, CPE, LFE; every 64th frame partial) from the native
+     C++ encoder: lossless, no frame to the oracle, equal to the native
+     decoder on the first 256 packets; host-API and device-resident
+     decode seconds, frames/s and peak memory;
+  6. the retry ladder: decode_frames_ex of B=4096 stereo-16 packets with
+     forced predictor orders 9..30 (modes 0 and 15): the 16- and 30-tap
+     decodes both run, no frame reaches the oracle, the PCM equals the
+     native decoder's; decode seconds beside phase 4's 8-tap decode.
+Each path (phases 4-6) runs with the launch counts set to 0 just before
+it and read just after; a kernel of the path that was not launched
+fails the run.  The line before the last is a JSON object of per-kernel
+results ("launches" sums the paths' counts; "ms" and "plain_ms" sum a
+kernel's compared calls); the last line is the JSON result line.
+``--profile DIR`` also writes torch.profiler tables of one
+device-resident encode + decode of phase 4 (DIR/profile.txt), one
+phase-5 decode (DIR/profile_51.txt) and the three phase-6 rungs
+(DIR/profile_ladder.txt).
 """
 
+import contextlib
+import importlib
 import json
 import os
 import subprocess
@@ -29,18 +47,28 @@ import sys
 import time
 
 B = 4096                 # frames per batch (bench.py's headline batch)
-N_NATIVE = 256           # packets held against the native C++ encoder
+S = 4096                 # samples per frame
+N_NATIVE = 256           # packets held against the native C++ codec
+N_DISTINCT_51 = 512      # distinct 24-bit 5.1 frames, tiled to B
+N_DISTINCT_HI = 256      # distinct forced-order packets, tiled to B
+PARTIAL_EVERY = 64       # every 64th 5.1 frame is a partial frame
 REPLACES = {
     "cost": "alacjax/ops/pallas/cost_pallas.py:346",
     "emit": "alacjax/ops/pallas/emit_pallas.py:257",
     "merge": "alacjax/ops/pallas/merge.py:98",
     "decode": "alacjax/ops/pallas/decode_step.py:121",
+    "decode_hi": "alacjax/ops/pallas/decode_pallas.py:381",
 }
-WRAPPERS = {            # kernel -> (wrapper module, wrapper function)
-    "cost": ("alacjax_torch.kernels.cost", "pc_block_cost2"),
-    "emit": ("alacjax_torch.kernels.emit", "rice_encode_words"),
-    "merge": ("alacjax_torch.kernels.merge", "merge_sorted_chunks"),
-    "decode": ("alacjax_torch.kernels.decode", "decode_channel"),
+SOURCES = {name: f"alacjax_torch/csrc/{name}.cu" for name in REPLACES}
+SOURCES["decode_hi"] = SOURCES["decode"]       # the 16/30-tap instances
+WRAPPERS = (("alacjax_torch.kernels.cost", "pc_block_cost2"),
+            ("alacjax_torch.kernels.emit", "rice_encode_words"),
+            ("alacjax_torch.kernels.merge", "merge_sorted_chunks"),
+            ("alacjax_torch.kernels.decode", "decode_channel"))
+PATH_KERNELS = {         # the kernels each path must launch
+    "phase 4": ("cost", "emit", "merge", "decode"),
+    "phase 5": ("decode",),
+    "phase 6": ("decode", "decode_hi"),
 }
 
 
@@ -97,89 +125,179 @@ def max_abs_err(got, want) -> int:
     return worst
 
 
-def record_main_path_calls(codec, x):
-    """Run one device-resident encode + decode with every kernel wrapper
-    wrapped by a recorder; returns [(kernel, wrapper, args, kwargs)]."""
-    import importlib
-    calls, saved = [], []
-    for name, (mod_name, fn_name) in WRAPPERS.items():
+def forced_order_packet(cfg, pcm, orders, modes, mixres=2):
+    """A legal packet with forced per-channel predictor orders and modes
+    (the element layout of ALACEncoder.cpp, with the search replaced by
+    fixed parameters): a jax-free copy of
+    tests/test_high_order_decode.py :: build_packet at its default
+    knobs, byte for byte.  pcm is planar (C, n); n < frame_length makes a
+    partial frame."""
+    import numpy as np
+    from alacjax.bitbuffer import BitBuffer
+    from alacjax.oracle import ag, dp, matrix
+    from alacjax.oracle.encoder import (
+        DEFAULT_MIX_BITS, PB_FACTOR, _rice_params, _write_channel_params,
+        _write_element_header,
+    )
+    from alacjax.types import DENSHIFT_DEFAULT, ElementTag
+
+    bits = BitBuffer(byte_size=4 * cfg.max_escape_packet_bytes(
+        cfg.frame_length) + 256)
+    num = pcm.shape[1]
+    ch = 0
+    tag_counters = {}
+    for tag, width in cfg.elements:
+        instance = tag_counters.get(int(tag), 0)
+        tag_counters[int(tag)] = instance + 1
+        _write_element_header(bits, tag, instance, num < cfg.frame_length,
+                              0, False, num)
+        his = [pcm[ch + i].astype(np.int64) for i in range(width)]
+        if width == 2:
+            chanbits = cfg.bit_depth + 1
+            bits.write(DEFAULT_MIX_BITS, 8)
+            bits.write(mixres & 0xFF, 8)
+            u, v = matrix.mix(his[0], his[1], DEFAULT_MIX_BITS, mixres)
+            half, mask = 1 << (chanbits - 1), (1 << chanbits) - 1
+            streams = [((u.astype(np.int64) + half) & mask) - half,
+                       ((v.astype(np.int64) + half) & mask) - half]
+        else:
+            chanbits = cfg.bit_depth
+            bits.write(0, 8)
+            bits.write(0, 8)
+            streams = [his[0]]
+        residuals = []
+        for i, s in enumerate(streams):
+            order, mode = orders[ch + i], modes[ch + i]
+            coefs = np.zeros(32, dtype=np.int64)
+            coefs[:3] = dp.init_coefs(DENSHIFT_DEFAULT)[:3]
+            crng = np.random.default_rng(1000 * order + ch + i)
+            if order > 3:
+                coefs[3:order] = crng.integers(-64, 64, order - 3)
+            res = dp.pc_block(s, coefs.copy(), order, chanbits,
+                              DENSHIFT_DEFAULT)
+            if mode:
+                res = dp.pc_block(res, coefs[:0], 31, chanbits, 0)
+            _write_channel_params(bits, mode, DENSHIFT_DEFAULT, PB_FACTOR,
+                                  coefs, order)
+            residuals.append(res)
+        for res in residuals:
+            ag.dyn_comp(_rice_params(cfg, num, PB_FACTOR), bits, res, num,
+                        chanbits)
+        ch += width
+    bits.write(int(ElementTag.END), 3)
+    bits.byte_align(add_zeros=True)
+    return bits.to_bytes()
+
+
+def kernel_of(mod, kwargs) -> str:
+    """The kernel (LAUNCHES key) a wrapper call launches."""
+    if hasattr(mod, "counter"):
+        return mod.counter(kwargs.get("taps", mod.fused_decode.TAPS))
+    return mod.__name__.rsplit(".", 1)[1]
+
+
+@contextlib.contextmanager
+def recording(calls):
+    """Wrap every kernel wrapper with a recorder that appends
+    (kernel, wrapper module, wrapper, args, kwargs) to ``calls``."""
+    saved = []
+    for mod_name, fn_name in WRAPPERS:
         mod = importlib.import_module(mod_name)
         wrapper = getattr(mod, fn_name)
 
-        def recorder(*args, _name=name, _fn=wrapper, **kwargs):
-            calls.append((_name, _fn, args, kwargs))
+        def recorder(*args, _mod=mod, _fn=wrapper, **kwargs):
+            calls.append((kernel_of(_mod, kwargs), _mod, _fn, args, kwargs))
             return _fn(*args, **kwargs)
 
         saved.append((mod, fn_name, wrapper))
         setattr(mod, fn_name, recorder)
     try:
-        words, _ = codec._encode(x)
-        codec._decode(words)
+        yield calls
     finally:
         for mod, fn_name, wrapper in saved:
             setattr(mod, fn_name, wrapper)
-    return calls
 
 
-def compare_kernels(codec, x):
-    """Phase 3: every kernel call of the main path against its plain
-    version on the same inputs, on the card."""
-    import importlib
-    calls = record_main_path_calls(codec, x)
-    rows = {k: dict(calls=0, ms=0.0, plain_ms=0.0, max_abs_err=0)
-            for k in REPLACES}
-    for name, wrapper, args, kwargs in calls:
-        plain = importlib.import_module(WRAPPERS[name][0]).plain
+def one_per_signature(calls):
+    """The first call of each distinct (kernel, taps, chanbits)."""
+    seen, out = set(), []
+    for call in calls:
+        name, _, _, args, kwargs = call
+        key = (name, kwargs.get("taps"), args[3])
+        if key not in seen:
+            seen.add(key)
+            out.append(call)
+    return out
+
+
+def compare_kernels(calls, rows):
+    """Phase 3: each recorded call through its kernel and through its
+    plain version on the same inputs, on the card."""
+    for name, mod, wrapper, args, kwargs in calls:
         got, ms = timed(lambda: wrapper(*args, **kwargs), reps=3)
-        want, plain_ms = timed_once(lambda: plain(*args, **kwargs))
+        want, plain_ms = timed_once(lambda: mod.plain(*args, **kwargs))
         err = max_abs_err(got, want)
+        row = rows[name]
         shape = "x".join(str(d) for d in args[0].shape)
-        print(f"  {name:6s} call {rows[name]['calls']} on {shape:12s} "
+        sig = (f" taps {kwargs['taps']} chanbits {args[3]}"
+               if "taps" in kwargs else "")
+        print(f"  {name:9s} call {row['calls']} on {shape:12s}{sig} "
               f"kernel {ms:10.4f} ms   plain {plain_ms:12.3f} ms   "
               f"max_abs_err {err}", flush=True)
         if err != 0:
             fail(f"{name} kernel disagrees with its plain version")
-        row = rows[name]
         row["calls"] += 1
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["ms"] += ms
         row["plain_ms"] += plain_ms
-    missing = [k for k, r in rows.items() if r["calls"] == 0]
+
+
+@contextlib.contextmanager
+def path_run(phase: str, counts: dict):
+    """Run a path with the launch counts set to 0 just before it and
+    read just after; fail if one of its kernels was not launched."""
+    import torch
+    from alacjax_torch import kernels
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    yield
+    torch.cuda.synchronize()
+    counts[phase] = dict(kernels.LAUNCHES)
+    print(f"  launches in the {phase} run: {counts[phase]}")
+    missing = [k for k in PATH_KERNELS[phase] if counts[phase][k] < 1]
     if missing:
-        fail(f"kernels the main path never called: {missing}")
-    return rows
+        fail(f"kernels not launched on the {phase} path: {missing}")
 
 
-def main_path(pcm, cfg, codec):
+def device_words(codec, packets):
+    import numpy as np
+    import torch
+    from alacjax_torch.ops import bitpack
+    wh = bitpack.bytes_to_words(packets, codec.num_words)
+    return torch.from_numpy(wh.view(np.int32)).to("cuda")
+
+
+def main_path(pcm, cfg, codec, counts):
     """Phase 4: the round trip through the host API, then the
     device-resident steady state."""
     import numpy as np
     import torch
     from alacjax import native
-    from alacjax_torch import kernels
 
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    packets = codec.encode_frames(pcm)
-    torch.cuda.synchronize()
-    enc_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    out, nums = codec.decode_frames_ex(packets)
-    torch.cuda.synchronize()
-    dec_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    print(f"  launches in the main-path run: {launches}")
-    missing = [k for k, n in launches.items() if n < 1]
-    if missing:
-        fail(f"kernels not launched on the main path: {missing}")
+    with path_run("phase 4", counts):
+        t0 = time.perf_counter()
+        packets = codec.encode_frames(pcm)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out, nums = codec.decode_frames_ex(packets)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
     if codec.fallback_frames:
         fail(f"{codec.fallback_frames} frames flagged by the device decode")
     if not (nums == cfg.frame_length).all() or not np.array_equal(out, pcm):
         fail("round trip is not lossless")
-    if not native.available():
-        fail(f"native C++ codec unavailable: {native.build_error()}")
     enc = native.NativeEncoder(cfg, independent_frames=True)
     ref = [enc.encode_packet(frame) for frame in pcm[:N_NATIVE]]
     bad = [i for i in range(N_NATIVE) if packets[i] != ref[i]]
@@ -213,27 +331,160 @@ def main_path(pcm, cfg, codec):
           f"{dec_t / iters} s per batch of {len(pcm)}, "
           f"{len(pcm) * iters / (enc_t + dec_t)} enc+dec frames/s, "
           f"peak device memory {peak} GiB")
-    return launches
+    return dict(host_dec_s=dec_s, dev_dec_s=dec_t / iters)
 
 
-def profile(codec, x, out_dir):
+def make_51(cfg):
+    """Phase 5's corpus: six channels of bench.py make_music signal (three
+    stereo renderings with different noise seeds) scaled to 24 bits with
+    a random low byte, every 64th frame partial.  N_DISTINCT_51 frames
+    are natively encoded and tiled to B.  Returns (pcm (B, 6, S) int32
+    with zeros past each frame's length, packets, nums)."""
+    import numpy as np
+    from alacjax import native
+    from bench import make_music
+    n = N_DISTINCT_51
+    hi = np.concatenate([make_music(n, S, seed=s) for s in (7, 8, 9)], axis=1)
+    rng = np.random.default_rng(24)
+    x = (hi.astype(np.int32) << 8) | rng.integers(0, 256, hi.shape,
+                                                  dtype=np.int32)
+    nums = np.full((n,), S)
+    nums[PARTIAL_EVERY - 1::PARTIAL_EVERY] = 1000 + 37 * np.arange(
+        n // PARTIAL_EVERY)
+    for i in np.nonzero(nums < S)[0]:
+        x[i, :, nums[i]:] = 0
+    enc = native.NativeEncoder(cfg, independent_frames=True)
+    packets = [enc.encode_packet(x[i][:, :nums[i]]) for i in range(n)]
+    reps = B // n
+    return np.tile(x, (reps, 1, 1)), packets * reps, np.tile(nums, reps)
+
+
+def layouts_and_depths(codec, pcm, packets, nums, counts):
+    """Phase 5: the 24-bit 5.1 decode through the host API, then device
+    resident."""
+    import numpy as np
+    import torch
+    from alacjax import native
+
+    cfg = codec.config
+    torch.cuda.reset_peak_memory_stats()
+    with path_run("phase 5", counts):
+        t0 = time.perf_counter()
+        out, got_nums = codec.decode_frames_ex(packets)
+        dec_s = time.perf_counter() - t0
+    if codec.fallback_frames:
+        fail(f"phase 5: {codec.fallback_frames} frames went to the oracle")
+    if not np.array_equal(got_nums, nums) or not np.array_equal(out, pcm):
+        fail("phase 5: the 24-bit 5.1 decode is not lossless")
+    nd = native.NativeDecoder(cfg)
+    for i in range(N_NATIVE):
+        y, got = nd.decode_packet(packets[i])
+        if got != nums[i] or not np.array_equal(out[i, :, :got], y):
+            fail(f"phase 5: packet {i} differs from the native C++ decoder")
+    print(f"  host API: lossless, 0 frames to the oracle, "
+          f"{N_NATIVE}/{N_NATIVE} packets equal to the native C++ decoder; "
+          f"decode {dec_s} s, {len(packets) / dec_s} frames/s")
+
+    w = device_words(codec, packets)
+    x = torch.from_numpy(pcm).to("cuda")
+    iters = 3
+    dec_t = 0.0
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dec, err, _ = codec._decode(w)
+        torch.cuda.synchronize()
+        dec_t += time.perf_counter() - t0
+        if bool(err.any().item()) or not torch.equal(dec, x):
+            fail("phase 5: device-resident decode is not lossless")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  device-resident: decode {dec_t / iters} s per batch of "
+          f"{len(packets)}, {len(packets) * iters / dec_t} frames/s, "
+          f"peak device memory {peak} GiB")
+    return w
+
+
+def make_hi(cfg):
+    """Phase 6's corpus: N_DISTINCT_HI stereo-16 packets of bench.py
+    make_music frames with forced orders spread over 9..30 on both
+    channels and modes 0 and 15, tiled to B.  Returns (pcm (B, 2, S),
+    packets)."""
+    import numpy as np
+    from bench import make_music
+    n = N_DISTINCT_HI
+    x = make_music(n, S, seed=30)
+    packets = []
+    for i in range(n):
+        orders = [9 + i % 22, 9 + (7 * i + 3) % 22]
+        mode = 15 if (i // 22) % 2 else 0
+        packets.append(forced_order_packet(cfg, x[i], orders, [mode, mode]))
+    reps = B // n
+    return np.tile(x, (reps, 1, 1)), packets * reps
+
+
+def retry_ladder(cfg, pcm, packets, counts, dec8):
+    """Phase 6: the ladder through the host API, then each rung's
+    device-resident decode."""
+    import numpy as np
+    from alacjax import native
+    from alacjax_torch import TorchCodec
+
+    codec = TorchCodec(cfg, chunk=B, device="cuda")
+    calls = []
+    with path_run("phase 6", counts), recording(calls):
+        t0 = time.perf_counter()
+        out, nums = codec.decode_frames_ex(packets)
+        dec_s = time.perf_counter() - t0
+    taps = sorted({c[4].get("taps") for c in calls})
+    if taps != [8, 16, 30]:
+        fail(f"phase 6: the ladder ran taps {taps}, not [8, 16, 30]")
+    if codec.fallback_frames:
+        fail(f"phase 6: {codec.fallback_frames} frames reached the oracle")
+    if not (nums == S).all() or not np.array_equal(out, pcm):
+        fail("phase 6: the ladder's decode is not lossless")
+    nd = native.NativeDecoder(cfg)
+    for i in range(N_DISTINCT_HI):
+        y, _ = nd.decode_packet(packets[i])
+        if not np.array_equal(out[i::N_DISTINCT_HI], np.broadcast_to(
+                y, out[i::N_DISTINCT_HI].shape)):
+            fail(f"phase 6: packet {i} differs from the native C++ decoder")
+    print(f"  host API: taps {taps}, 0 frames to the oracle, PCM equal to "
+          f"the native C++ decoder; ladder decode {dec_s} s "
+          f"({len(packets) / dec_s} frames/s) against phase 4's 8-tap "
+          f"decode {dec8['host_dec_s']} s")
+    w = device_words(codec, packets)
+    rungs = []
+    for t in (8, 16, 30):
+        _, ms = timed_once(lambda: codec._decode(w, taps=t))
+        rungs.append(f"taps {t} {ms / 1e3} s")
+    print(f"  device-resident decode per rung: {', '.join(rungs)}; phase 4's "
+          f"8-tap decode {dec8['dev_dec_s']} s")
+    return w
+
+
+def profile(fn, name: str):
+    """With --profile DIR: a torch.profiler table of one call of fn,
+    written to DIR/name."""
+    if "--profile" not in sys.argv:
+        return
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
+    out_dir = sys.argv[sys.argv.index("--profile") + 1]
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
-        words, _ = codec._encode(x)
-        codec._decode(words)
+        fn()
         torch.cuda.synchronize()
     os.makedirs(out_dir, exist_ok=True)
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-    with open(os.path.join(out_dir, "profile.txt"), "w") as f:
+    with open(os.path.join(out_dir, name), "w") as f:
         f.write(table)
-    print(f"  profile written to {out_dir}/profile.txt")
+    print(f"  profile written to {out_dir}/{name}")
 
 
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     repo = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(repo, "alacjax_torch")):
         fail("alacjax_torch/ is not beside this script: run it from the "
@@ -247,6 +498,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
 
     sys.path.insert(0, repo)
+    from alacjax import native
     from alacjax_torch import AlacConfig, TorchCodec
     from alacjax_torch.kernels import LAUNCHES, _build
     from bench import make_music
@@ -255,36 +507,84 @@ def main() -> int:
     _build.lib()
     print(f"phase 2: kernels built in {_build.build_seconds} s")
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if line.startswith("==") or any(
+                k in line for k in ("entry function", "registers", "spill")):
             print(f"  ptxas: {line.strip()}")
+    if not native.available():
+        fail(f"native C++ codec unavailable: {native.build_error()}")
 
-    cfg = AlacConfig(bit_depth=16, num_channels=2, frame_length=4096,
+    cfg = AlacConfig(bit_depth=16, num_channels=2, frame_length=S,
                      sample_rate=44100)
-    pcm = make_music(B, cfg.frame_length)
+    cfg51 = AlacConfig(bit_depth=24, num_channels=6, frame_length=S,
+                       sample_rate=48000)
+    t0 = time.perf_counter()
+    pcm = make_music(B, S)
+    pcm51, packets51, nums51 = make_51(cfg51)
+    pcm_hi, packets_hi = make_hi(cfg)
+    print(f"corpora made in {time.perf_counter() - t0} s: phase 5 tiles "
+          f"{N_DISTINCT_51} distinct natively encoded 5.1 frames to {B}, "
+          f"phase 6 tiles {N_DISTINCT_HI} distinct forced-order packets "
+          f"to {B}", flush=True)
     codec = TorchCodec(cfg, chunk=B, device="cuda")
+    codec51 = TorchCodec(cfg51, chunk=B, device="cuda")
     x = torch.from_numpy(pcm).to("cuda")
 
-    # phase 3: kernels vs plain versions on the main path's inputs
+    # phase 3: kernels vs plain versions on recorded inputs
     print(f"phase 3: kernels vs plain torch on {kind} ({card})", flush=True)
-    rows = compare_kernels(codec, x)
+    with recording([]) as calls:
+        words, _ = codec._encode(x)
+        codec._decode(words)
+    with recording([]) as calls51:
+        codec51._decode(device_words(codec51, packets51))
+    with recording([]) as calls_hi:
+        w_hi = device_words(codec, packets_hi)
+        for t in (16, 30):
+            codec._decode(w_hi, taps=t)
+    calls += one_per_signature(calls51) + one_per_signature(
+        [c for c in calls_hi if c[0] == "decode_hi"])
+    del words, w_hi
+    rows = {k: dict(calls=0, ms=0.0, plain_ms=0.0, max_abs_err=0)
+            for k in REPLACES}
+    compare_kernels(calls, rows)
+    del calls, calls51, calls_hi
+    missing = [k for k, r in rows.items() if r["calls"] == 0]
+    if missing:
+        fail(f"kernels never compared with their plain versions: {missing}")
 
+    counts = {}
     # phase 4: main path
-    print(f"phase 4: main path, B={B} stereo-16 frames of "
-          f"{cfg.frame_length} on {kind} ({card})", flush=True)
-    launches = main_path(pcm, cfg, codec)
-    if "--profile" in sys.argv:
-        profile(codec, x, sys.argv[sys.argv.index("--profile") + 1])
+    print(f"phase 4: main path, B={B} stereo-16 frames of {S} on {kind} "
+          f"({card})", flush=True)
+    dec8 = main_path(pcm, cfg, codec, counts)
+    profile(lambda: codec._decode(codec._encode(x)[0]), "profile.txt")
+    del x
+
+    # phase 5: layouts and depths
+    print(f"phase 5: B={B} 24-bit 5.1 frames of {S} on {kind} ({card})",
+          flush=True)
+    w51 = layouts_and_depths(codec51, pcm51, packets51, nums51, counts)
+    profile(lambda: codec51._decode(w51), "profile_51.txt")
+    del w51
+    del pcm51, packets51
+
+    # phase 6: the retry ladder
+    print(f"phase 6: retry ladder, B={B} stereo-16 forced-order packets on "
+          f"{kind} ({card})", flush=True)
+    w_hi = retry_ladder(cfg, pcm_hi, packets_hi, counts, dec8)
+    profile(lambda: [codec._decode(w_hi, taps=t) for t in (8, 16, 30)],
+            "profile_ladder.txt")
 
     if "jax" in sys.modules:
         fail("jax was imported")
     if set(LAUNCHES) != set(REPLACES):
         fail(f"kernel set changed: {sorted(LAUNCHES)}")
-    kernels = [dict(name=name, route="cuda",
-                    source=f"alacjax_torch/csrc/{name}.cu",
-                    replaces=REPLACES[name], launches=launches[name],
+    kernels = [dict(name=name, route="cuda", source=SOURCES[name],
+                    replaces=REPLACES[name],
+                    launches=sum(c[name] for c in counts.values()),
                     max_abs_err=rows[name]["max_abs_err"],
                     ms=rows[name]["ms"], plain_ms=rows[name]["plain_ms"])
                for name in REPLACES]
+    print(f"total wall time {time.perf_counter() - t_start} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -20,7 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from alacjax.types import AlacConfig, KB0, MB0, PB0
+from alacjax.oracle.encoder import PB_FACTOR
+from alacjax.types import DENSHIFT_DEFAULT, AlacConfig, KB0, MB0, PB0
 from alacjax_torch import TorchCodec, kernels
 from alacjax_torch.kernels import _build
 from alacjax_torch.kernels import cost as k_cost
@@ -67,6 +68,47 @@ def test_sources_import_no_jax():
                 assert not name.startswith(JAX_MODULES), (path, name)
 
 
+def _field(packet: bytes, bit: int, n: int) -> int:
+    v = int.from_bytes(packet, "big")
+    return (v >> (8 * len(packet) - bit - n)) & ((1 << n) - 1)
+
+
+def channel0_lanes(build, spec, S: int, seed: int):
+    """Decode-kernel inputs for channel 0 of packets with forced orders.
+
+    ``build`` is a forced-order packet builder (cfg, pcm, orders, modes)
+    -> bytes; ``spec`` lists (depth, channels, order, mode, num) per
+    lane.  Returns ((B, W) uint32 words, dict of per-lane numpy arrays
+    start/pb/coefs (B, 30)/mode/order/den/num/cb, packets), each field
+    read off the packet."""
+    rng = np.random.default_rng(seed)
+    packets, rows = [], []
+    for depth, nch, order, mode, num in spec:
+        cfg = AlacConfig(bit_depth=depth, num_channels=nch, frame_length=S)
+        t = np.arange(S)
+        full = 1 << (depth - 1)
+        pcm = np.clip((np.sin(t * 0.01) * (full // 4)
+                       + np.sin(t * 0.1) * 200).astype(np.int64)[None, :]
+                      + rng.integers(-3, 4, (nch, S)), -full, full - 1)
+        packets.append(build(cfg, pcm[:, :num], [order] + [4] * (nch - 1),
+                             [mode] * nch))
+        at = 23 + (32 if num < S else 0) + 16 + 16
+        coefs = [_field(packets[-1], at + 16 * k, 16)
+                 for k in range(order % 31)]
+        rows.append(dict(start=at + 16 * (order % 31),
+                         coefs=[c - (c >> 15 << 16) for c in coefs],
+                         cb=depth + (nch == 2), num=num, order=order,
+                         mode=mode, pb=(cfg.pb * PB_FACTOR) // 4))
+    words = bitpack.bytes_to_words(packets, max(map(len, packets)) // 4 + 3)
+    lane = {k: np.array([r[k] for r in rows], np.int32)
+            for k in ("start", "pb", "mode", "order", "num", "cb")}
+    lane["den"] = np.full(len(rows), DENSHIFT_DEFAULT, np.int32)
+    lane["coefs"] = np.zeros((len(rows), 30), np.int32)
+    for b, r in enumerate(rows):
+        lane["coefs"][b, :len(r["coefs"])] = r["coefs"]
+    return words, lane, packets
+
+
 def _small_inputs(rng, L=4, S=64):
     x = rng.integers(-3000, 3000, (L, S)).astype(np.int32)
     x[0] = 0
@@ -110,7 +152,8 @@ def test_cpu_tensors_take_the_plain_version(rng):
                                        KB0, WB, *per)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert kernels.LAUNCHES == {"cost": 0, "emit": 0, "merge": 0, "decode": 0}
+    assert kernels.LAUNCHES == dict.fromkeys(
+        ("cost", "emit", "merge", "decode", "decode_hi"), 0)
 
 
 def test_other_devices_raise_instead_of_falling_back(rng):
@@ -209,8 +252,70 @@ def test_merge_and_decode_kernels_on_card(cuda):
     codec = TorchCodec(cfg, chunk=12, device="cuda")
     kernels.reset_launches()
     out, nums = codec.decode_frames_ex(codec.encode_frames(pcm))
-    assert all(n > 0 for n in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    assert all(kernels.LAUNCHES[k] > 0
+               for k in ("cost", "emit", "merge", "decode")), kernels.LAUNCHES
     np.testing.assert_array_equal(out, pcm)
     assert codec.fallback_frames == 0
     cpu = TorchCodec(cfg, chunk=12, device="cpu")
     assert codec.encode_frames(pcm) == cpu.encode_frames(pcm)
+
+
+# (depth, channels, channel 0's order, mode, num): chanbits 16/17/20/21
+HI_LANES = [(16, 1, 12, 0, 256), (16, 2, 30, 15, 256), (20, 1, 17, 0, 77),
+            (20, 2, 24, 0, 256), (16, 1, 9, 15, 200), (20, 1, 30, 0, 256),
+            (16, 2, 16, 0, 256), (20, 2, 31, 0, 256), (16, 1, 0, 0, 256),
+            (20, 1, 4, 15, 256), (16, 2, 21, 15, 64), (20, 2, 8, 0, 256)] * 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("taps", [16, 30])
+def test_decode_hi_kernel_on_card(cuda, taps):
+    """The 16- and 30-tap decode instances with per-lane chanbits equal
+    the plain version, and count under decode_hi."""
+    import chip_smoke
+    words, lane, _ = channel0_lanes(chip_smoke.forced_order_packet,
+                                    HI_LANES, 256, taps)
+    t = {k: torch.from_numpy(v) for k, v in lane.items()}
+    t["coefs"] = t["coefs"][:, :taps].contiguous()
+    w = torch.from_numpy(words.view(np.int32))
+
+    def run(dev):
+        d = {k: v.to(dev) for k, v in t.items()}
+        return k_decode.decode_channel(
+            w.to(dev), d["start"], 256, d["cb"], MB0, d["pb"], KB0, WB,
+            d["coefs"], d["mode"], d["order"], d["den"], num=d["num"],
+            taps=taps, chanbits_max=21)
+
+    kernels.reset_launches()
+    got = run(cuda)
+    assert kernels.LAUNCHES["decode_hi"] == 1
+    assert kernels.LAUNCHES["decode"] == 0
+    _same(got, run("cpu"))
+
+
+@pytest.mark.cuda
+def test_51_24bit_decode_on_card(cuda):
+    """24-bit 5.1 (four chained elements, shift bytes, an escaped frame
+    and a partial one) decodes losslessly on the card, equal to the
+    codec on the CPU."""
+    from alacjax.oracle import ALACEncoder
+    cfg = AlacConfig(bit_depth=24, num_channels=6, frame_length=256)
+    rng = np.random.default_rng(51)
+    t = np.arange(256)
+    pcm = np.stack([(np.round(np.sin(t * (0.01 + 0.002 * b) + np.arange(6)
+                                     [:, None]) * 3e6).astype(np.int64))
+                    + rng.integers(-300, 300, (6, 256)) for b in range(12)])
+    pcm[4] = rng.integers(-(1 << 23), 1 << 23, (6, 256))    # escapes
+    pcm[7, :, 100:] = 0                                     # partial
+    enc = ALACEncoder(cfg, independent_frames=True)
+    packets = [enc.encode_packet(f[:, :100] if b == 7 else f)
+               for b, f in enumerate(pcm)]
+    codec = TorchCodec(cfg, chunk=12, device="cuda")
+    kernels.reset_launches()
+    out, nums = codec.decode_frames_ex(packets)
+    assert kernels.LAUNCHES["decode"] > 0
+    assert codec.fallback_frames == 0
+    np.testing.assert_array_equal(out, pcm)
+    assert nums[7] == 100
+    cpu_out, _ = TorchCodec(cfg, chunk=12).decode_frames_ex(packets)
+    np.testing.assert_array_equal(out, cpu_out)
