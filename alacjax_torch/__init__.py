@@ -1,9 +1,11 @@
 """alacjax_torch — the PyTorch/CUDA port of alacjax's batched ALAC codec.
 
-Ported so far: the encode of single-element 16-bit layouts (independent
-full frames, the standard search) and the decode of every layout, depth
-and legal predictor order (the 8 -> 16 -> 30-tap retry ladder).
-Every scan runs in a hand-written CUDA kernel for Hopper
+Ported so far: the encode of every element layout, depth 16/20/24/32,
+partial tail and search mode (standard, fast, exhaustive) in
+independent frames, with the standalone-predictor route as an option,
+and the decode of every layout, depth and legal predictor order (the
+8 -> 16 -> 30-tap retry ladder); persistent coefficient banks are not
+ported yet.  Every scan runs in a hand-written CUDA kernel for Hopper
 (``alacjax_torch/csrc``) on CUDA tensors, and in its plain torch version
 (``alacjax_torch/ops``) on CPU tensors.  The package imports torch and
 never jax; alacjax/ stays the reference it is held to, bit for bit.

@@ -1,17 +1,24 @@
 """Batched codec pipeline on torch — the port of alacjax/codec.py.
-Encode: single-element 16-bit layouts (stereo CPE or mono SCE),
-independent full frames, the standard search.  Decode: every layout
-(mono, stereo, 3 to 8 channels as chained SCE/CPE/LFE elements), depths
-16/20/24/32, partial frames and every legal predictor order, through
-the 8 -> 16 -> 30-tap retry ladder.
+Encode: every element layout (mono, stereo, 3 to 8 channels as SCE/CPE/
+LFE elements), depths 16/20/24/32, partial frames batched with full
+frames, the standard, fast and exhaustive searches, independent frames
+(persistent coefficient banks are not ported yet).  Decode: every
+layout and depth, partial frames and every legal predictor order,
+through the 8 -> 16 -> 30-tap retry ladder.
 
-Encode dataflow (alacjax.codec._encode_packet_chunks, standard branch):
-dilated mixres trial (7 stacked candidate streams per CPE, cost kernel,
-order 8, one cost machine) -> mix -> order {4, 8} x stage {1, 2} search
-(cost kernel, two cost machines, one call per order) -> closed-form
-segment offsets and per-element escape sizing -> headers as tiny token
-images -> Rice emission kernel -> per-element escape select -> merge
-kernel (scatter + tail OR) -> (B, W) word image.
+Encode dataflow (alacjax.codec._encode_packet_chunks, general branch):
+per-element shift-off -> stereo mode of every CPE (one dilated trial, 7
+candidate streams per CPE, order 8, one cost machine; fast mode takes a
+constant) -> mix -> one (order x stage) search over every channel of
+every element (one call per order; exhaustive mode searches all five
+mixes of each CPE and picks per element) -> closed-form element starts
+and per-element escape sizing -> headers as tiny token images, the
+shift-byte blocks as placed field packs -> one Rice emission over every
+channel (per-lane chanbits and sample count) -> per-element escape
+select -> merge kernel (scatter + tail OR) -> (B, W) word image.  The
+trial and the search price candidates with the fused cost kernel or,
+with ``predict_legacy``, with the standalone predictor kernel followed
+by the Rice cost kernel (alacjax's ALACJAX_PALLAS_PREDICT_LEGACY=1).
 
 Decode dataflow (alacjax.codec.decode_frames_device, chained branch),
 per element: header parse (static offsets for a single-element packet,
@@ -23,7 +30,8 @@ the next element starts where this one ends.
 Each ``lax.cond`` of the reference is a Python ``if`` on a
 ``.any().item()``.  Tensors live on the codec's device; the kernel
 wrappers launch CUDA kernels for CUDA tensors and run the plain torch
-versions for CPU tensors.
+versions for CPU tensors.  The encoder's word images travel as int32 bit
+patterns (empty keys -1), the small header images as int64.
 """
 
 from __future__ import annotations
@@ -33,8 +41,8 @@ import torch
 
 from alacjax.oracle import ALACDecoder as OracleDecoder
 from alacjax.oracle.encoder import (
-    DEFAULT_MIX_BITS, FAST_ORDER, MAX_RES, MIXRES_DILATE, PB_FACTOR,
-    SEARCH_ORDERS, SEARCH_STAGES, bytes_shifted_for_depth,
+    DEFAULT_MIX_BITS, FAST_MIX_RES, FAST_ORDER, MAX_RES, MIXRES_DILATE,
+    PB_FACTOR, SEARCH_ORDERS, SEARCH_STAGES, bytes_shifted_for_depth,
 )
 from alacjax.types import (
     DENSHIFT_DEFAULT, AlacConfig, AlacParamError, kALACMaxCoefs,
@@ -44,6 +52,7 @@ from .kernels import cost as k_cost
 from .kernels import decode as k_decode
 from .kernels import emit as k_emit
 from .kernels import merge as k_merge
+from .kernels import predict as k_predict
 from .ops import bitpack, fused_decode, matrix, predict
 from .ops.tutils import I32, I64, MASK32, as_i32_bits, iota1, sign_extend, u32
 from .state import init_coefs_batched
@@ -54,13 +63,17 @@ DEFAULT_CHUNK = 256
 DECODE_DEPTHS = (16, 20, 24, 32)
 
 
-def check_encode_config(config: AlacConfig) -> None:
-    """Raise unless the port's encoder covers this configuration yet."""
-    if (len(config.elements) != 1 or config.bit_depth != 16
-            or config.fast_mode or config.search != "standard"):
+def check_encode_config(config: AlacConfig, banks=None) -> None:
+    """Raise unless the port's encoder covers this configuration: every
+    layout, depth 16/20/24/32 and search mode, in independent frames.
+    Persistent coefficient banks (alacjax's encode_stream_device and
+    encode_streams) are not ported yet."""
+    check_decode_config(config)
+    if banks is not None:
         raise AlacParamError(
-            "alacjax_torch encodes single-element 16-bit layouts with the "
-            "standard search; use alacjax for other configurations")
+            "alacjax_torch encodes independent frames; persistent "
+            "coefficient banks are not ported yet (use alacjax.codec."
+            "encode_streams)")
 
 
 def check_decode_config(config: AlacConfig) -> None:
@@ -75,9 +88,11 @@ def check_decode_config(config: AlacConfig) -> None:
 # ---------------------------------------------------------------------------
 # token-building helpers (encode)
 # ---------------------------------------------------------------------------
-def _header23(tag, bytes_shifted, escape):
-    """The 23-bit element header of instance 0, full frame."""
-    return (int(tag) << 20) | (bytes_shifted << 1) | int(escape)
+def _header23(tag, instance: int, bytes_shifted: int, escape: bool):
+    """The 23-bit element header of a full frame (a partial frame ORs in
+    bit 3)."""
+    return ((int(tag) << 20) | (instance << 16) | (bytes_shifted << 1)
+            | int(escape))
 
 
 def _chparam_token(order, mode):
@@ -105,53 +120,105 @@ def _rice_params_static(config: AlacConfig):
     return config.mb, pb, config.kb, (1 << config.kb) - 1
 
 
-def _mixres_select(l_hi, r_hi, chanbits: int, config):
-    """Stereo mode of a CPE in one dilated trial: 7 candidate streams
-    (L, R, U1..U4, the shared V), priced by the cost kernel at order 8
-    with fresh coefs; argmin of the summed cost (first minimum wins)."""
-    B = l_hi.shape[0]
+def _lane_chanbits(chanbits_list, B: int, device):
+    """The chanbits of streams stacked B lanes each: one int when they
+    all agree, else a per-lane int32 vector (SCE and CPE channels differ
+    by one bit)."""
+    if len(set(chanbits_list)) == 1:
+        return chanbits_list[0]
+    return torch.cat([torch.full((B,), cb, dtype=I32, device=device)
+                      for cb in chanbits_list])
+
+
+def _tile_lanes(nums, n: int):
+    """Per-lane sample counts of n stacked copies of the batch (int32),
+    or None for full frames."""
+    return None if nums is None else nums.to(I32).repeat(n).contiguous()
+
+
+def _price(xs, c0s, order: int, chanbits, num, config, dual: bool,
+           predict_legacy: bool):
+    """Residuals and Rice costs of stacked streams at one static order:
+    (res (L, S), cost1 (L,), cost2 (L,) or None).  The default route is
+    the fused cost kernel.  ``predict_legacy`` is the standalone-
+    predictor route (alacjax/ops/predict.py:328-332 and :375-381): the
+    predictor kernel, then the Rice cost of its residuals and, for
+    stage 2, of their first difference; the cost kernel is not
+    launched."""
     mb0, pb, kb, wb = _rice_params_static(config)
-    ld = l_hi[:, ::MIXRES_DILATE]
-    rd = r_hi[:, ::MIXRES_DILATE]
-    cand = [ld, rd]                                      # mixres 0
-    cand += [matrix.mix(ld, rd, DEFAULT_MIX_BITS, mr)[0]
-             for mr in range(1, MAX_RES + 1)]
-    cand.append(as_i32_bits(ld.to(I64) - rd.to(I64)))   # shared V
+    if predict_legacy:
+        res, _ = k_predict.pc_block(xs, c0s, order, chanbits,
+                                    DENSHIFT_DEFAULT)
+        c1 = k_predict.rice_cost(res, chanbits, mb0, pb, kb, wb, num=num)
+        c2 = (k_predict.rice_cost(predict.wrap_diff(res, chanbits),
+                                  chanbits, mb0, pb, kb, wb, num=num)
+              if dual else None)
+        return res, c1, c2
+    res, c1, c2, _ = k_cost.pc_block_cost2(
+        xs, c0s, order, chanbits, DENSHIFT_DEFAULT, mb0, pb, kb, wb,
+        dual=dual, num=num)
+    return res, c1, c2 if dual else None
+
+
+def _mixres_select(cpe_pairs, chanbits: int, config, nums=None,
+                   predict_legacy: bool = False):
+    """Stereo mode of every CPE in one stacked dilated trial: 7 candidate
+    streams per CPE (L, R, U1..U4, the shared V), priced at order 8 with
+    fresh coefs over ceil(num / MIXRES_DILATE) samples per lane; per
+    element, argmin of the summed cost (first minimum wins).  Returns a
+    list of (B,) mixres selections."""
+    B = cpe_pairs[0][0].shape[0]
+    dev = cpe_pairs[0][0].device
+    n_cand = (MAX_RES + 1) + 2
+    cand = []
+    for l_hi, r_hi in cpe_pairs:
+        ld = l_hi[:, ::MIXRES_DILATE]
+        rd = r_hi[:, ::MIXRES_DILATE]
+        cand += [ld, rd]                                 # mixres 0
+        cand += [matrix.mix(ld, rd, DEFAULT_MIX_BITS, mr)[0]
+                 for mr in range(1, MAX_RES + 1)]
+        cand.append(as_i32_bits(ld.to(I64) - rd.to(I64)))   # shared V
     st = torch.cat(cand, dim=0).contiguous()
-    _, c, _, _ = k_cost.pc_block_cost2(
-        st, init_coefs_batched(st.shape[0], st.device), FAST_ORDER,
-        chanbits, DENSHIFT_DEFAULT, mb0, pb, kb, wb, dual=False)
-    c = c.to(I64).reshape(len(cand), B)
-    tot = torch.stack([c[0] + c[1]]
-                      + [c[1 + mr] + c[-1] for mr in range(1, MAX_RES + 1)])
-    return torch.argmin(tot, dim=0)
+    nd = (None if nums is None
+          else _tile_lanes((nums + MIXRES_DILATE - 1) // MIXRES_DILATE,
+                           len(cand)))
+    _, c, _ = _price(st, init_coefs_batched(st.shape[0], dev), FAST_ORDER,
+                     chanbits, nd, config, False, predict_legacy)
+    ce = c.to(I64).reshape(len(cpe_pairs), n_cand, B)
+    return [torch.argmin(torch.stack(
+        [ce[e, 0] + ce[e, 1]]
+        + [ce[e, 1 + mr] + ce[e, n_cand - 1] for mr in range(1, MAX_RES + 1)]),
+        dim=0) for e in range(len(cpe_pairs))]
 
 
-def _search_channels(streams, chanbits: int, config):
-    """Per-channel (order x stage) candidate search over every channel:
-    one dual-cost kernel call per order over the stacked channels.
-    Candidates (4,1),(4,2),(8,1),(8,2); first minimum wins.  Returns
-    per-channel lists (res, order, mode, rice_bits) and the channels'
-    shared fresh coefs0."""
+def _search_channels(streams, chanbits_list, config, nums=None,
+                     predict_legacy: bool = False):
+    """Per-channel (order x stage) candidate search over every stacked
+    stream: one call per order (the TPU path's split), per-lane chanbits
+    when SCE and CPE channels mix.  Candidates (4,1),(4,2),(8,1),(8,2),
+    first minimum wins; fast mode prices order 8, stage 1 only.  Returns
+    per-stream lists (res, order, mode, rice_bits); every stream starts
+    from the fresh coefficients."""
     B = streams[0].shape[0]
     dev = streams[0].device
-    mb0, pb, kb, wb = _rice_params_static(config)
-    orders, stages = list(SEARCH_ORDERS), list(SEARCH_STAGES)
+    fast = config.fast_mode
+    orders = [FAST_ORDER] if fast else list(SEARCH_ORDERS)
+    stages = [1] if fast else list(SEARCH_STAGES)
     W = len(streams)
     xs = torch.cat(streams, dim=0).contiguous()
     c0s = init_coefs_batched(W * B, dev)
-    by_order = {}
-    for od in orders:
-        by_order[od] = k_cost.pc_block_cost2(
-            xs, c0s, od, chanbits, DENSHIFT_DEFAULT, mb0, pb, kb, wb,
-            dual=True)
+    cb_all = _lane_chanbits(chanbits_list, B, dev)
+    num_all = _tile_lanes(nums, W)
+    by_order = {od: _price(xs, c0s, od, cb_all, num_all, config,
+                           len(stages) > 1, predict_legacy)
+                for od in orders}
     res_l, order_l, mode_l, rice_l = [], [], [], []
     for ci in range(W):
         sl = slice(ci * B, (ci + 1) * B)
         cand_costs, cand_rice = [], []
         for od in orders:
-            _, c1, c2, _ = by_order[od]
-            for rc in (c1[sl], c2[sl]):
+            _, c1, c2 = by_order[od]
+            for rc in ([c1[sl]] if c2 is None else [c1[sl], c2[sl]]):
                 cand_costs.append(16 + 16 * od + rc.to(I64))
                 cand_rice.append(rc.to(I64))
         win = torch.argmin(torch.stack(cand_costs, dim=0), dim=0)
@@ -170,13 +237,97 @@ def _search_channels(streams, chanbits: int, config):
         for od in orders[1:]:
             res_win = torch.where((order_win == od)[:, None],
                                   by_order[od][0][sl], res_win)
-        res_win = torch.where((mode_win != 0)[:, None],
-                              predict.wrap_diff(res_win, chanbits), res_win)
-        res_l.append(res_win.contiguous())
+        if len(stages) > 1:
+            res_win = torch.where((mode_win != 0)[:, None],
+                                  predict.wrap_diff(res_win,
+                                                    chanbits_list[ci]),
+                                  res_win)
+        res_l.append(res_win.to(I32).contiguous())
         order_l.append(order_win)
         mode_l.append(mode_win)
         rice_l.append(rice_win)
-    return res_l, order_l, mode_l, rice_l, c0s[:B]
+    return res_l, order_l, mode_l, rice_l
+
+
+def _select_standard(elems, config, nums, predict_legacy: bool) -> None:
+    """Stereo mode of every CPE (the dilated trial, or fast mode's
+    constant), then one search over every channel of every element."""
+    B = elems[0]["chans"][0].shape[0]
+    dev = elems[0]["chans"][0].device
+    cpes = [e for e in elems if e["is_cpe"]]
+    if config.fast_mode:
+        for e in cpes:
+            e["mixres"] = torch.full((B,), FAST_MIX_RES, dtype=I64,
+                                     device=dev)
+    elif cpes:
+        sels = _mixres_select([(e["his"][0], e["his"][1]) for e in cpes],
+                              cpes[0]["chanbits"], config, nums,
+                              predict_legacy)
+        for e, sel in zip(cpes, sels):
+            e["mixres"] = sel
+    streams, cbs = [], []
+    for e in elems:
+        if e["is_cpe"]:
+            streams += matrix.mix(e["his"][0], e["his"][1], DEFAULT_MIX_BITS,
+                                  e["mixres"][:, None])
+        else:
+            e["mixres"] = torch.zeros((B,), dtype=I64, device=dev)
+            streams.append(e["his"][0])
+        cbs += [e["chanbits"]] * e["width"]
+    res, orders, modes, rice_bits = _search_channels(
+        streams, cbs, config, nums, predict_legacy)
+    ci = 0
+    for e in elems:
+        sl = slice(ci, ci + e["width"])
+        ci += e["width"]
+        e.update(res=res[sl], orders=orders[sl], modes=modes[sl],
+                 rice_bits=rice_bits[sl])
+
+
+def _select_exhaustive(elems, config, nums, predict_legacy: bool) -> None:
+    """Every (mixres x order x stage) candidate of every channel in one
+    stacked search (10 streams per CPE, no dilated trial); per CPE, the
+    mixres whose two channels cost least in total (first minimum
+    wins)."""
+    B = elems[0]["chans"][0].shape[0]
+    dev = elems[0]["chans"][0].device
+    streams, cbs = [], []
+    for e in elems:
+        e["slots"] = []
+        for mr in range(MAX_RES + 1 if e["is_cpe"] else 1):
+            e["slots"].append(len(streams))
+            if e["is_cpe"]:
+                streams += matrix.mix(e["his"][0], e["his"][1],
+                                      DEFAULT_MIX_BITS, mr)
+            else:
+                streams.append(e["his"][0])
+            cbs += [e["chanbits"]] * e["width"]
+    res, orders, modes, rice_bits = _search_channels(
+        streams, cbs, config, nums, predict_legacy)
+    for e in elems:
+        slots, w = e["slots"], e["width"]
+        if not e["is_cpe"]:
+            s = slots[0]
+            e.update(mixres=torch.zeros((B,), dtype=I64, device=dev),
+                     res=[res[s]], orders=[orders[s]], modes=[modes[s]],
+                     rice_bits=[rice_bits[s]])
+            continue
+        tot = torch.stack([sum(16 + 16 * orders[s + c] + rice_bits[s + c]
+                               for c in range(w)) for s in slots], dim=0)
+        mr_win = torch.argmin(tot, dim=0)
+
+        def pick(by_mr, mr_win=mr_win):
+            out = by_mr[0]
+            for m in range(1, MAX_RES + 1):
+                hit = mr_win == m
+                out = torch.where(hit[:, None] if out.ndim == 2 else hit,
+                                  by_mr[m], out)
+            return out
+
+        e["mixres"] = mr_win
+        for key, vals in (("res", res), ("orders", orders), ("modes", modes),
+                          ("rice_bits", rice_bits)):
+            e[key] = [pick([vals[s + c] for s in slots]) for c in range(w)]
 
 
 # ---------------------------------------------------------------------------
@@ -213,25 +364,27 @@ def _emit_header(vals_list, lens_list, start_bits, cap_bits: int):
     return words, keys, start_bits + img_bits - phase, tail_val, tail_key
 
 
-def _emit_block(fields, d: int, start_bits):
+def _emit_block(fields, d: int, start_bits, nf_lane=None):
     """Pack fixed-width fields and place them at per-lane bit offsets:
     phase-0 pack + per-lane funnel shift + word keys, complete words
-    only.  Returns (words, keys, end_bits, tail_val, tail_key), int64."""
+    only.  ``nf_lane`` (per-lane field count, partial frames) keeps each
+    lane's first nf_lane fields; fields past it must be zero already.
+    The boundary word is the tail (a gather at the per-lane complete-
+    word count, which at a full count is _emit_block's or
+    _emit_block_n's select alike).
+    Returns (words, keys, end_bits, tail_val, tail_key), int64."""
     placed = u32(bitpack.place_segment(bitpack.pack_fields(fields, d),
                                        start_bits & 31))
     Wp = placed.shape[1]
     keys = _segment_keys(start_bits >> 5, Wp)
-    nbits = fields.shape[1] * d
-    phase = start_bits & 31
-    n_complete = (phase + nbits) >> 5
+    nbits = fields.shape[1] * d if nf_lane is None else nf_lane * d
+    n_complete = ((start_bits & 31) + nbits) >> 5
     keys = torch.where(iota1(Wp, device=keys.device)[None, :]
                        < n_complete[:, None], keys, MASK32)
     end = start_bits + nbits
-    has_tail = (end & 31) > 0
-    lo, hi = nbits >> 5, (31 + nbits) >> 5
-    tail_hi = placed[:, hi] if hi < Wp else torch.zeros_like(placed[:, 0])
-    tail_val = torch.where(n_complete == lo, placed[:, lo], tail_hi)
-    tail_val = torch.where(has_tail, tail_val, 0)
+    tail_val = torch.gather(placed, 1, torch.clamp(n_complete, max=Wp - 1)
+                            [:, None])[:, 0]
+    tail_val = torch.where((end & 31) > 0, tail_val, 0)
     tail_key = (start_bits >> 5) + n_complete
     return placed, keys, end, tail_val, tail_key
 
@@ -240,63 +393,163 @@ def _pad_cols(a, T: int, value: int):
     return torch.nn.functional.pad(a, (0, T - a.shape[1]), value=value)
 
 
-def _raw_samples(e):
-    """The element's PCM as its escape block writes it: channel-
-    interleaved for a CPE."""
-    chans = e["chans"]
-    return _interleave2(chans[0], chans[1]) if e["is_cpe"] else chans[0]
+def _masked_block(e, name: str, nums):
+    """An element's per-sample block (raw samples or shift bytes),
+    channel-interleaved for a CPE, with the fields past each partial
+    lane's count zeroed: (fields (B, width*S), per-lane field count or
+    None)."""
+    chans = e[name]
+    f = _interleave2(chans[0], chans[1]) if e["is_cpe"] else chans[0]
+    if nums is None:
+        return f, None
+    nf = e["width"] * nums
+    return torch.where(iota1(f.shape[1], device=f.device)[None, :]
+                       < nf[:, None], f, 0), nf
 
 
-def _encode_packet_chunks(pcm, config: AlacConfig, num_words: int):
-    """(B, C, S) int32 planar -> ((B, W) int32 word image, (B,) total
-    bits): the standard branch of alacjax's _encode_packet_chunks with
-    nums=None and banks=None, for the one element
-    ``check_encode_config`` admits (it starts at bit 0)."""
-    check_encode_config(config)
+def _partial_tokens(hv, hl, nums, S: int):
+    """A partial lane's header: bit 3 of the 23-bit header and a 32-bit
+    numSamples token (zero-length on full lanes).  Returns the header
+    cap's extra bits."""
+    if nums is None:
+        return 0
+    partial = nums < S
+    hv[0] = hv[0] | (partial.to(I64) << 3)[:, None]
+    hv.append(nums[:, None])
+    hl.append(torch.where(partial, 32, 0)[:, None])
+    return 32
+
+
+def _esc_stream(e, depth: int, nums, S: int):
+    """Escape stream chunks of one element: 23-bit header (+ numSamples
+    on partial lanes) + raw samples at full depth, at the element's
+    start.  Returns (vals, keys (int32 bits), (tails v), (tails k))."""
+    B = e["start"].shape[0]
+    dev = e["start"].device
+    hv = [torch.full((B, 1), _header23(e["tag"], e["instance"], 0, True),
+                     dtype=I64, device=dev)]
+    hl = [torch.full((B, 1), 23, dtype=I64, device=dev)]
+    cap = 23 + _partial_tokens(hv, hl, nums, S)
+    ew, ek, epos, etv, etk = _emit_header(hv, hl, e["start"], cap)
+    raw, nf = _masked_block(e, "chans", nums)
+    rw, rk, _, rtv, rtk = _emit_block(raw, depth, epos, nf)
+    return (as_i32_bits(torch.cat([ew, rw], dim=1)),
+            as_i32_bits(torch.cat([ek, rk], dim=1)), (etv, rtv), (etk, rtk))
+
+
+def _header_stream(e, bs: int, nums, S: int):
+    """The compressed element's header tokens at its start: 23-bit
+    header (+ numSamples), mixBits/mixRes (0, 0 for an SCE/LFE), and per
+    channel the parameter word and its order's coefficients.  Returns
+    _emit_header's result."""
+    B = e["start"].shape[0]
+    dev = e["start"].device
+
+    def full(v, n=1):
+        return torch.full((B, n), v, dtype=I64, device=dev)
+
+    hv = [full(_header23(e["tag"], e["instance"], bs, False))]
+    hl = [full(23)]
+    cap = 23 + _partial_tokens(hv, hl, nums, S) + 16
+    hv.append(((DEFAULT_MIX_BITS << 8) | (e["mixres"].to(I64) & 0xFF))[:, None]
+              if e["is_cpe"] else full(0))
+    hl.append(full(16))
+    coefs0 = init_coefs_batched(B, dev)   # independent frames: fresh coefs
+    for ci in range(e["width"]):
+        hv.append(_chparam_token(e["orders"][ci], e["modes"][ci])[:, None])
+        hl.append(full(16))
+        cv, cl = _coef_tokens(coefs0, e["orders"][ci])
+        hv.append(cv)
+        hl.append(cl)
+        cap += 16 + 16 * kALACMaxCoefs
+    return _emit_header(hv, hl, e["start"], cap)
+
+
+def _encode_packet_chunks(pcm, config: AlacConfig, num_words: int,
+                          nums=None, predict_legacy: bool = False,
+                          banks=None):
+    """(B, C, S) int32 planar -> ((B, W) int32 word image, (B,) int32
+    total bits): the general branch of alacjax's _encode_packet_chunks
+    in independent-frames mode (``banks`` must be None).
+
+    ``nums`` (per-lane (B,), 1 <= nums <= S; samples past it zero):
+    lanes with nums < S encode as partial frames — the header's partial
+    flag and a 32-bit numSamples field, per-lane sized shift and escape
+    blocks, cost and emission machines stopped at nums.
+    ``predict_legacy`` prices the trial and the search through the
+    standalone predictor kernel and the Rice cost kernel instead of the
+    fused cost kernel: the same packets."""
+    check_encode_config(config, banks)
     B = pcm.shape[0]
     dev = pcm.device
     S = config.frame_length
     depth = config.bit_depth
     bs = bytes_shifted_for_depth(depth)
     mb0, pb, kb, wb = _rice_params_static(config)
-    (tag, width), = config.elements
-    is_cpe = width == 2
-    chanbits = depth - 8 * bs + (1 if is_cpe else 0)
-    chans = [pcm[:, ci, :].to(I32) for ci in range(width)]
-    his = [matrix.shift_off(c, bs)[0] for c in chans]
+    if nums is not None:
+        nums = nums.to(I64)
+        pbits = torch.where(nums < S, 32, 0)
 
-    # ---- stereo mode (one dilated trial), then the channel search ----
-    if is_cpe:
-        mixres = _mixres_select(his[0], his[1], chanbits, config)
-        streams = list(matrix.mix(his[0], his[1], DEFAULT_MIX_BITS,
-                                  mixres[:, None]))
+    # ---- per-element prep: instance counters, shift-off low bytes ----
+    elems = []
+    ch = 0
+    tag_counters = {}
+    for tag, width in config.elements:
+        instance = tag_counters.get(int(tag), 0)
+        tag_counters[int(tag)] = instance + 1
+        is_cpe = width == 2
+        chans = [pcm[:, ch + i, :].to(I32) for i in range(width)]
+        ch += width
+        split = [matrix.shift_off(c, bs) for c in chans]
+        elems.append(dict(
+            tag=tag, instance=instance, width=width, is_cpe=is_cpe,
+            chanbits=depth - 8 * bs + (1 if is_cpe else 0), chans=chans,
+            his=[h for h, _ in split], los=[lo for _, lo in split]))
+
+    # ---- stereo modes and the channel search ----
+    if config.search == "exhaustive" and not config.fast_mode:
+        _select_exhaustive(elems, config, nums, predict_legacy)
     else:
-        mixres = None
-        streams = his
-    res, orders, modes, rice_bits, coefs0 = _search_channels(
-        streams, chanbits, config)
-    e = dict(tag=tag, width=width, is_cpe=is_cpe, chans=chans,
-             mixres=mixres, orders=orders, modes=modes, coefs0=coefs0)
+        _select_standard(elems, config, nums, predict_legacy)
 
-    # ---- header / escape sizing ----
-    hdr_bits = 23 + 16 + width * 16 + 16 * sum(orders)
-    shift_bits = width * S * 8 * bs
-    esc_bits = 23 + width * S * depth
-    comp_bits = hdr_bits + shift_bits + sum(rice_bits)
-    e["use_escape"] = comp_bits >= esc_bits
-    total_c = torch.where(e["use_escape"], esc_bits, comp_bits)
+    # ---- per-element header / escape sizing; chained element starts ----
+    n_lane = S if nums is None else nums
+    start = torch.zeros((B,), dtype=I64, device=dev)
+    for e in elems:
+        width = e["width"]
+        # +16: mixBits/mixRes are present in every non-escape element
+        # (mono writes 0, 0); a partial lane's 32-bit numSamples field
+        # sits in both forms
+        hdr_bits = 23 + 16 + width * 16 + 16 * sum(e["orders"])
+        esc_bits = 23 + width * depth * n_lane
+        if nums is not None:
+            hdr_bits = hdr_bits + pbits
+            esc_bits = esc_bits + pbits
+        shift_bits = width * 8 * bs * n_lane
+        comp_bits = hdr_bits + shift_bits + sum(e["rice_bits"])
+        e["use_escape"] = comp_bits >= esc_bits
+        e["start"] = start
+        e["rice_start"] = start + hdr_bits + shift_bits
+        start = start + torch.where(e["use_escape"], esc_bits, comp_bits)
+    total_c = start
 
     # ---- one stacked Rice emission over every channel ----
-    pos = hdr_bits + shift_bits
-    rice_starts = []
-    for ci in range(width):
-        rice_starts.append(pos)
-        pos = pos + rice_bits[ci]
-    any_comp = not bool(e["use_escape"].all().item())
+    any_comp = not bool(torch.stack([e["use_escape"] for e in elems])
+                        .all().item())
+    emitted = None
     if any_comp:
+        feed, starts, cbs = [], [], []
+        for e in elems:
+            pos = e["rice_start"]
+            for ci in range(e["width"]):
+                feed.append(e["res"][ci])
+                starts.append(pos)
+                cbs.append(e["chanbits"])
+                pos = pos + e["rice_bits"][ci]
         emitted = k_emit.rice_encode_words(
-            torch.cat(res, dim=0), chanbits, mb0, pb, kb, wb,
-            torch.cat(rice_starts, dim=0).to(I32))
+            torch.cat(feed, dim=0), _lane_chanbits(cbs, B, dev), mb0, pb, kb,
+            wb, torch.cat(starts, dim=0).to(I32), bit_size_cap=max(cbs),
+            num=_tile_lanes(nums, len(feed)))
 
     # ---- END tag (3 bits) at the known end position: pure tails ----
     phase = total_c & 31
@@ -307,100 +560,94 @@ def _encode_packet_chunks(pcm, config: AlacConfig, num_words: int):
     total_bits = (total_c + 3).to(I32)
 
     if any_comp:
-        words = _assemble_mixed(e, emitted, end_tv, end_tk, config, bs,
+        words = _assemble_mixed(elems, emitted, end_tv, end_tk, config, nums,
                                 num_words)
     else:
-        words = _assemble_all_escape(e, config, num_words)
+        words = _assemble_all_escape(elems, end_tv, end_tk, config, nums,
+                                     num_words)
     return words, total_bits
 
 
-def _esc_stream(e, depth: int):
-    """Escape stream chunks: 23-bit header + raw samples at full depth.
-    Returns (vals, keys, (tails v), (tails k)), int64."""
-    B = e["chans"][0].shape[0]
-    dev = e["chans"][0].device
-    eh23 = torch.full((B, 1), _header23(e["tag"], 0, True), dtype=I64,
-                      device=dev)
-    start = torch.zeros((B,), dtype=I64, device=dev)
-    ew, ek, epos, etv, etk = _emit_header(
-        [eh23], [torch.full((B, 1), 23, dtype=I64, device=dev)], start, 23)
-    rw, rk, _, rtv, rtk = _emit_block(_raw_samples(e), depth, epos)
-    return (torch.cat([ew, rw], dim=1), torch.cat([ek, rk], dim=1),
-            (etv, rtv), (etk, rtk))
-
-
-def _esc_stream_width(width: int, S: int, depth: int) -> int:
-    """Static column count of _esc_stream: header words + placed block."""
-    return (31 + 23 + 31) // 32 + (width * S * depth + 31) // 32 + 1
-
-
-def _assemble_mixed(e, emitted, end_tv, end_tk, config, bs: int,
+def _assemble_mixed(elems, emitted, end_tv, end_tk, config, nums,
                     num_words: int):
-    """Chunk assembly when some lane compressed: header tokens, the Rice
-    chunks of every channel, the per-lane escape select, then the merge
+    """Chunk assembly when some lane compressed (mixed_chunks): per
+    element, the header tokens, the shift-byte block and the Rice chunks
+    of its channels, with the per-element escape select; then the merge
     kernel."""
     S = config.frame_length
     depth = config.bit_depth
+    bs = bytes_shifted_for_depth(depth)
     cw_all, ck_all, _, ctv_all, ctk_all = emitted
-    B = e["chans"][0].shape[0]
-    dev = e["chans"][0].device
-    width = e["width"]
-
-    def full(v, n=1):
-        return torch.full((B, n), v, dtype=I64, device=dev)
-
-    hv = [full(_header23(e["tag"], bs, False))]
-    hl = [full(23)]
-    if e["is_cpe"]:
-        hv.append(((DEFAULT_MIX_BITS << 8)
-                   | (e["mixres"].to(I64) & 0xFF))[:, None])
-    else:
-        hv.append(full(0))
-    hl.append(full(16))
-    for ci in range(width):
-        hv.append(_chparam_token(e["orders"][ci], e["modes"][ci])[:, None])
-        hl.append(full(16))
-        cv, cl = _coef_tokens(e["coefs0"], e["orders"][ci])
-        hv.append(cv)
-        hl.append(cl)
-    cap = 23 + 16 + width * (16 + 16 * kALACMaxCoefs)
-    start = torch.zeros((B,), dtype=I64, device=dev)
-    hw, hk, _, htv, htk = _emit_header(hv, hl, start, cap)
-    seg_v, seg_k = [hw], [hk]
-    tail_v, tail_k = [htv], [htk]
-    for ci in range(width):
-        sl = slice(ci * B, (ci + 1) * B)
-        seg_v.append(u32(cw_all[sl]))
-        seg_k.append(u32(ck_all[sl]))
-        tail_v.append(u32(ctv_all[sl]))
-        tail_k.append(u32(ctk_all[sl]))
-    vals = torch.cat(seg_v, dim=1)
-    keys = torch.cat(seg_k, dim=1)
-    T = max(vals.shape[1], _esc_stream_width(width, S, depth))
-    vals = _pad_cols(vals, T, 0)
-    keys = _pad_cols(keys, T, MASK32)
-    ue = e["use_escape"]
-    if bool(ue.any().item()):
-        vals_e, keys_e, tv_e, tk_e = _esc_stream(e, depth)
-        vals = torch.where(ue[:, None], _pad_cols(vals_e, T, 0), vals)
-        keys = torch.where(ue[:, None], _pad_cols(keys_e, T, MASK32), keys)
-        n_pad = len(tail_v) - 2
-        zero = torch.zeros_like(tail_v[0])
-        tail_v = [torch.where(ue, b, a)
-                  for a, b in zip(tail_v, list(tv_e) + [zero] * n_pad)]
-        tail_k = [torch.where(ue, b, a)
-                  for a, b in zip(tail_k, list(tk_e) + [zero + MASK32] * n_pad)]
+    B = elems[0]["start"].shape[0]
+    all_vals, all_keys, tail_v, tail_k = [], [], [], []
+    rci = 0
+    for e in elems:
+        hw, hk, pos, htv, htk = _header_stream(e, bs, nums, S)
+        seg_v, seg_k = [as_i32_bits(hw)], [as_i32_bits(hk)]
+        tv_c, tk_c = [htv], [htk]
+        if bs:
+            sh, nf = _masked_block(e, "los", nums)
+            bw, bk, pos, btv, btk = _emit_block(sh, 8 * bs, pos, nf)
+            seg_v.append(as_i32_bits(bw))
+            seg_k.append(as_i32_bits(bk))
+            tv_c.append(btv)
+            tk_c.append(btk)
+        for _ in range(e["width"]):
+            sl = slice(rci * B, (rci + 1) * B)
+            seg_v.append(cw_all[sl])
+            seg_k.append(ck_all[sl])
+            tv_c.append(u32(ctv_all[sl]))
+            tk_c.append(u32(ctk_all[sl]))
+            rci += 1
+        vals = torch.cat(seg_v, dim=1)
+        keys = torch.cat(seg_k, dim=1)
+        ue = e["use_escape"]
+        if bool(ue.any().item()):
+            vals_e, keys_e, tv_e, tk_e = _esc_stream(e, depth, nums, S)
+            T = max(vals.shape[1], vals_e.shape[1])
+            vals = torch.where(ue[:, None], _pad_cols(vals_e, T, 0),
+                               _pad_cols(vals, T, 0))
+            keys = torch.where(ue[:, None], _pad_cols(keys_e, T, -1),
+                               _pad_cols(keys, T, -1))
+            n_pad = len(tv_c) - 2
+            zero = torch.zeros_like(tv_c[0])
+            tv_c = [torch.where(ue, b, a)
+                    for a, b in zip(tv_c, list(tv_e) + [zero] * n_pad)]
+            tk_c = [torch.where(ue, b, a)
+                    for a, b in zip(tk_c, list(tk_e) + [zero + MASK32] * n_pad)]
+        all_vals.append(vals)
+        all_keys.append(keys)
+        tail_v += tv_c
+        tail_k += tk_c
     return k_merge.merge_sorted_chunks(
-        as_i32_bits(vals), as_i32_bits(keys),
+        torch.cat(all_vals, dim=1), torch.cat(all_keys, dim=1),
         as_i32_bits(torch.stack(tail_v + end_tv, dim=1)),
         as_i32_bits(torch.stack(tail_k + end_tk, dim=1)), num_words)
 
 
-def _assemble_all_escape(e, config, num_words: int):
-    """Every lane escaped: the packed raw image at its static bit
-    offset, no chunk merge."""
+def _assemble_all_escape(elems, end_tv, end_tk, config, nums,
+                         num_words: int):
+    """Every lane of every element escaped.  Full frames: each element's
+    packed raw image at its static bit offset, no chunk merge.  With
+    partial lanes (per-lane offsets): the escape chunks through the
+    merge kernel."""
     S = config.frame_length
     depth = config.bit_depth
+    B = elems[0]["start"].shape[0]
+    dev = elems[0]["start"].device
+    if nums is not None:
+        av, ak, tv, tk = [], [], [], []
+        for e in elems:
+            ev, ek, (etv, rtv), (etk, rtk) = _esc_stream(e, depth, nums, S)
+            av.append(ev)
+            ak.append(ek)
+            tv += [etv, rtv]
+            tk += [etk, rtk]
+        return k_merge.merge_sorted_chunks(
+            torch.cat(av, dim=1), torch.cat(ak, dim=1),
+            as_i32_bits(torch.stack(tv + end_tv, dim=1)),
+            as_i32_bits(torch.stack(tk + end_tk, dim=1)), num_words)
+
     row = np.zeros((num_words,), np.uint64)
 
     def or_static(val, nbits, pos):
@@ -411,24 +658,30 @@ def _assemble_all_escape(e, config, num_words: int):
         if ph + nbits > 32 and w + 1 < num_words:
             row[w + 1] |= v64 & 0xFFFFFFFF
 
-    B = e["chans"][0].shape[0]
-    dev = e["chans"][0].device
-    or_static(_header23(e["tag"], 0, True), 23, 0)
-    img = bitpack.pack_fields(_raw_samples(e), depth)
-    placed = u32(bitpack.place_segment(
-        img, torch.full((B,), 23, dtype=I64, device=dev)))
-    Wp = min(placed.shape[1], num_words)
     out = torch.zeros((B, num_words), dtype=I64, device=dev)
-    out[:, :Wp] = placed[:, :Wp]
-    or_static(0b111, 3, 23 + e["width"] * depth * S)
+    pos = 0
+    for e in elems:
+        or_static(_header23(e["tag"], e["instance"], 0, True), 23, pos)
+        raw, _ = _masked_block(e, "chans", None)
+        p0 = pos + 23
+        placed = u32(bitpack.place_segment(
+            bitpack.pack_fields(raw, depth),
+            torch.full((B,), p0 & 31, dtype=I64, device=dev)))
+        w0 = p0 >> 5
+        Wp = min(placed.shape[1], num_words - w0)
+        out[:, w0:w0 + Wp] |= placed[:, :Wp]
+        pos = p0 + e["width"] * depth * S
+    or_static(0b111, 3, pos)
     out = out | torch.from_numpy(row.astype(np.int64)).to(dev)[None, :]
     return as_i32_bits(out)
 
 
-def encode_frames_device(pcm, config: AlacConfig, num_words: int):
-    """(B, C, S) planar int32 tensor -> ((B, W) int32 word image,
-    (B,) int32 total bits)."""
-    return _encode_packet_chunks(pcm, config, num_words)
+def encode_frames_device(pcm, config: AlacConfig, num_words: int, nums=None,
+                         predict_legacy: bool = False):
+    """(B, C, S) planar int32 tensor (+ optional (B,) per-lane sample
+    counts) -> ((B, W) int32 word image, (B,) int32 total bits)."""
+    return _encode_packet_chunks(pcm, config, num_words, nums=nums,
+                                 predict_legacy=predict_legacy)
 
 
 # ---------------------------------------------------------------------------
@@ -676,23 +929,28 @@ def decode_frames_device(words, config: AlacConfig, num_samples: int,
 # ---------------------------------------------------------------------------
 class TorchCodec:
     """Batched codec for one AlacConfig on one torch device: encode and
-    decode whole chunks of frames per call.  Every configuration the
-    decoder covers constructs; ``encode_frames`` raises AlacParamError
-    for one the encoder does not cover yet."""
+    decode whole chunks of frames per call.  ``predict_legacy`` runs the
+    encoder's trial and search through the standalone predictor kernel
+    and the Rice cost kernel instead of the fused cost kernel (alacjax's
+    ALACJAX_PALLAS_PREDICT_LEGACY=1): the same packets."""
 
     def __init__(self, config: AlacConfig, chunk: int = DEFAULT_CHUNK,
-                 device="cpu"):
-        check_decode_config(config)
+                 device="cpu", predict_legacy: bool = False):
+        check_encode_config(config)
         self.config = config
         self.chunk = chunk
         self.device = torch.device(device)
+        self.predict_legacy = predict_legacy
         S = config.frame_length
         self.num_words = (config.max_escape_packet_bytes(S) + 3) // 4 + 2
         self.fallback_frames = 0   # frames the device flagged -> oracle
 
-    def _encode(self, pcm):
-        """(B, C, S) int32 device tensor -> (words, total_bits) tensors."""
-        return encode_frames_device(pcm, self.config, self.num_words)
+    def _encode(self, pcm, nums=None):
+        """(B, C, S) int32 device tensor (+ (B,) int32 sample counts) ->
+        (words, total_bits) tensors."""
+        return encode_frames_device(pcm, self.config, self.num_words,
+                                    nums=nums,
+                                    predict_legacy=self.predict_legacy)
 
     def _decode(self, words, taps: int = fused_decode.TAPS):
         """(B, W) int32 device tensor -> (pcm, err, num) tensors."""
@@ -700,18 +958,39 @@ class TorchCodec:
                                     self.config.frame_length, taps=taps)
 
     def encode_frames(self, pcm: np.ndarray) -> list[bytes]:
-        """(nf, C, S) planar int -> list of nf packets."""
+        """(nf, C, S) planar int -> list of nf packets (full frames)."""
+        return self._encode_host(pcm, None)
+
+    def encode_frames_ex(self, pcm: np.ndarray,
+                         nums: np.ndarray) -> list[bytes]:
+        """(nf, C, S) planar int + (nf,) per-frame sample counts -> list
+        of nf packets.  Frames with nums < S encode as partial (tail)
+        frames, batched with full frames; their samples at index >= nums
+        must be zero (callers pad)."""
+        return self._encode_host(pcm, np.asarray(nums, dtype=np.int32))
+
+    def _encode_host(self, pcm, nums):
+        """Chunks of ``chunk`` frames through the device encode; a short
+        last chunk is padded with silent full frames."""
+        S = self.config.frame_length
         nf = pcm.shape[0]
         packets = []
         for off in range(0, nf, self.chunk):
             block = np.asarray(pcm[off:off + self.chunk])
             n = block.shape[0]
-            if n < self.chunk:
+            pad = self.chunk - n
+            if pad:
                 block = np.concatenate(
-                    [block, np.zeros((self.chunk - n,) + block.shape[1:],
+                    [block, np.zeros((pad,) + block.shape[1:],
                                      dtype=block.dtype)], axis=0)
             x = torch.from_numpy(block.astype(np.int32)).to(self.device)
-            words, bits = self._encode(x)
+            if nums is None:
+                words, bits = self._encode(x)
+            else:
+                nm = np.concatenate([nums[off:off + n],
+                                     np.full((pad,), S, np.int32)])
+                words, bits = self._encode(
+                    x, torch.from_numpy(nm).to(self.device))
             packets.extend(bitpack.words_to_bytes(
                 words[:n].cpu().numpy(), bits[:n].cpu().numpy()))
         return packets
@@ -770,9 +1049,11 @@ _CODEC_CACHE: dict[tuple, TorchCodec] = {}
 
 
 def get_codec(config: AlacConfig, chunk: int = DEFAULT_CHUNK,
-              device="cpu") -> TorchCodec:
-    """Shared-cache codec lookup by (config, chunk, device)."""
-    key = (config, chunk, str(torch.device(device)))
+              device="cpu", predict_legacy: bool = False) -> TorchCodec:
+    """Shared-cache codec lookup by (config, chunk, device,
+    predict_legacy)."""
+    key = (config, chunk, str(torch.device(device)), predict_legacy)
     if key not in _CODEC_CACHE:
-        _CODEC_CACHE[key] = TorchCodec(config, chunk, device=device)
+        _CODEC_CACHE[key] = TorchCodec(config, chunk, device=device,
+                                       predict_legacy=predict_legacy)
     return _CODEC_CACHE[key]

@@ -13,9 +13,13 @@
 // Design: one thread per lane with the whole S loop inside; the lags,
 // coefficients and both Rice states live in registers; the order (4 or
 // 8) is a template parameter so the FIR and adaptation loops unroll and
-// the lag rotation is register renaming.  Input and residuals are laid
-// out (S, L), so a warp's loads and stores at step t coalesce.  Small
-// blocks (32 threads) spread the few thousand lanes over many SMs.
+// the lag rotation is register renaming.  chanbits is a per-lane vector
+// (one launch holds SCE and CPE channels of any depth, the TPU kernel's
+// cb row) and so is the sample count num (partial frames, the num row):
+// the Rice machines stop at the lane's num, the walk runs all S.  Input
+// and residuals are laid out (S, L), so a warp's loads and stores at
+// step t coalesce.  Small blocks (32 threads) spread the few thousand
+// lanes over many SMs.
 #include "common.cuh"
 
 namespace alac {
@@ -23,13 +27,17 @@ namespace alac {
 template <int NA, bool DUAL>
 __global__ void cost_kernel(const int* __restrict__ xt,
                             const int* __restrict__ coefs0,
+                            const int* __restrict__ cb,
+                            const int* __restrict__ num,
                             int* __restrict__ res_t, int* __restrict__ cost1,
                             int* __restrict__ cost2,
                             int* __restrict__ coefs_out, int L, int S,
-                            int chanbits, int denshift, unsigned mb0,
-                            unsigned pb, int kb, unsigned wb) {
+                            int denshift, unsigned mb0, unsigned pb, int kb,
+                            unsigned wb) {
     const int lane = blockIdx.x * blockDim.x + threadIdx.x;
     if (lane >= L) return;
+    const int chanbits = cb[lane];
+    const int n = num ? num[lane] : S;     // the Rice machines' sample count
     const int den = denshift < 1 ? 1 : denshift;
     const int denhalf = 1 << (den - 1);
 
@@ -83,18 +91,19 @@ __global__ void cost_kernel(const int* __restrict__ xt,
         for (int i = NA; i > 0; --i) lags[i] = lags[i - 1];
         lags[0] = x_t;
 
-        tot1 += rice_step(r1, out, t, S, chanbits, pb, kb, wb, rv, rb, vv, vl);
+        tot1 += rice_step(r1, out, t, n, chanbits, pb, kb, wb, rv, rb, vv, vl);
         if (DUAL) {
             const int d = t == 0 ? out : sext(wsub(out, prev_out), chanbits);
-            tot2 += rice_step(r2, d, t, S, chanbits, pb, kb, wb, rv, rb, vv, vl);
+            tot2 += rice_step(r2, d, t, n, chanbits, pb, kb, wb, rv, rb, vv, vl);
             prev_out = out;
         }
     }
-    // virtual end step (t == S): flush a pending zero-run token
-    tot1 += rice_step(r1, 1, S, S, chanbits, pb, kb, wb, rv, rb, vv, vl);
+    // virtual end step (t == S): flush a pending zero-run token (a lane
+    // with num < S flushed at t == num and emits nothing here)
+    tot1 += rice_step(r1, 1, S, n, chanbits, pb, kb, wb, rv, rb, vv, vl);
     cost1[lane] = tot1;
     if (DUAL) {
-        tot2 += rice_step(r2, 1, S, S, chanbits, pb, kb, wb, rv, rb, vv, vl);
+        tot2 += rice_step(r2, 1, S, n, chanbits, pb, kb, wb, rv, rb, vv, vl);
         cost2[lane] = tot2;
     }
     // columns >= NA never adapt: they leave as they came in
@@ -105,39 +114,40 @@ __global__ void cost_kernel(const int* __restrict__ xt,
 }
 
 template <int NA, bool DUAL>
-static void launch(const int* xt, const int* coefs0, int* res_t, int* cost1,
-                   int* cost2, int* coefs_out, int L, int S, int chanbits,
-                   int denshift, unsigned mb0, unsigned pb, int kb,
-                   unsigned wb, cudaStream_t stream) {
+static void launch(const int* xt, const int* coefs0, const int* cb,
+                   const int* num, int* res_t, int* cost1, int* cost2,
+                   int* coefs_out, int L, int S, int denshift, unsigned mb0,
+                   unsigned pb, int kb, unsigned wb, cudaStream_t stream) {
     const int threads = 32;
     const int blocks = (L + threads - 1) / threads;
     cost_kernel<NA, DUAL><<<blocks, threads, 0, stream>>>(
-        xt, coefs0, res_t, cost1, cost2, coefs_out, L, S, chanbits, denshift,
+        xt, coefs0, cb, num, res_t, cost1, cost2, coefs_out, L, S, denshift,
         mb0, pb, kb, wb);
 }
 
 }  // namespace alac
 
-extern "C" int alac_cost(const int* xt, const int* coefs0, int* res_t,
-                         int* cost1, int* cost2, int* coefs_out, int L, int S,
-                         int order, int dual, int chanbits, int denshift,
-                         unsigned mb0, unsigned pb, int kb, unsigned wb,
-                         void* stream) {
+// cb: (L,) per-lane chanbits; num: (L,) per-lane sample counts, or
+// nullptr for S on every lane.
+extern "C" int alac_cost(const int* xt, const int* coefs0, const int* cb,
+                         const int* num, int* res_t, int* cost1, int* cost2,
+                         int* coefs_out, int L, int S, int order, int dual,
+                         int denshift, unsigned mb0, unsigned pb, int kb,
+                         unsigned wb, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
     if (L <= 0) return (int)cudaGetLastError();
+#define ALAC_COST_ARGS xt, coefs0, cb, num, res_t, cost1, cost2, coefs_out, \
+        L, S, denshift, mb0, pb, kb, wb, s
     if (order == 4 && dual)
-        alac::launch<4, true>(xt, coefs0, res_t, cost1, cost2, coefs_out, L, S,
-                              chanbits, denshift, mb0, pb, kb, wb, s);
+        alac::launch<4, true>(ALAC_COST_ARGS);
     else if (order == 4)
-        alac::launch<4, false>(xt, coefs0, res_t, cost1, cost2, coefs_out, L,
-                               S, chanbits, denshift, mb0, pb, kb, wb, s);
+        alac::launch<4, false>(ALAC_COST_ARGS);
     else if (order == 8 && dual)
-        alac::launch<8, true>(xt, coefs0, res_t, cost1, cost2, coefs_out, L, S,
-                              chanbits, denshift, mb0, pb, kb, wb, s);
+        alac::launch<8, true>(ALAC_COST_ARGS);
     else if (order == 8)
-        alac::launch<8, false>(xt, coefs0, res_t, cost1, cost2, coefs_out, L,
-                               S, chanbits, denshift, mb0, pb, kb, wb, s);
+        alac::launch<8, false>(ALAC_COST_ARGS);
     else
         return (int)cudaErrorInvalidValue;
+#undef ALAC_COST_ARGS
     return (int)cudaGetLastError();
 }

@@ -17,8 +17,11 @@
 // machine and the accumulator in registers.  A lane writes its completed
 // words and keys into its own row of (S+1) * n_slots slots, empty slots
 // 0 / 0xFFFFFFFF, in exactly rice.py's slot layout, and its final partial
-// word as the tail (end bits, tail value, tail key).  Input is laid out
-// (S, L) so the loads coalesce.
+// word as the tail (end bits, tail value, tail key).  The bit size (the
+// escape payload, the lane's chanbits) and the sample count num (partial
+// frames) are per-lane vectors, so one launch emits every channel of
+// every element; the slot count comes from the largest bit size.  Input
+// is laid out (S, L) so the loads coalesce.
 #include "common.cuh"
 
 namespace alac {
@@ -47,16 +50,20 @@ constexpr int MAX_SLOTS = 3;
 
 __global__ void emit_kernel(const int* __restrict__ xt,
                             const int* __restrict__ start_bits,
+                            const int* __restrict__ bs,
+                            const int* __restrict__ num,
                             unsigned* __restrict__ words,
                             unsigned* __restrict__ keys,
                             int* __restrict__ end_bits,
                             unsigned* __restrict__ tail_val,
                             unsigned* __restrict__ tail_key, int L, int S,
-                            int bit_size, int n_slots, unsigned mb0,
-                            unsigned pb, int kb, unsigned wb) {
+                            int n_slots, unsigned mb0, unsigned pb, int kb,
+                            unsigned wb) {
     const int lane = blockIdx.x * blockDim.x + threadIdx.x;
     if (lane >= L) return;
     const int start = start_bits[lane];
+    const int bit_size = bs[lane];
+    const int n = num ? num[lane] : S;     // past n the lane emits nothing
     const unsigned base_word = (unsigned)(start >> 5);
     const size_t row = (size_t)lane * (size_t)(S + 1) * n_slots;
 
@@ -67,7 +74,7 @@ __global__ void emit_kernel(const int* __restrict__ xt,
         const int x = t < S ? xt[(size_t)t * L + lane] : 1;
         unsigned tok_v[2];
         int tok_l[2];
-        rice_step(st, x, t, S, bit_size, pb, kb, wb, tok_v[0], tok_l[0],
+        rice_step(st, x, t, n, bit_size, pb, kb, wb, tok_v[0], tok_l[0],
                   tok_v[1], tok_l[1]);
         unsigned slot_w[MAX_SLOTS], slot_k[MAX_SLOTS];
 #pragma unroll
@@ -105,19 +112,23 @@ __global__ void emit_kernel(const int* __restrict__ xt,
 
 }  // namespace alac
 
-extern "C" int alac_emit(const int* xt, const int* start_bits, int* words,
-                         int* keys, int* end_bits, int* tail_val,
-                         int* tail_key, int L, int S, int bit_size,
-                         int n_slots, unsigned mb0, unsigned pb, int kb,
-                         unsigned wb, void* stream) {
-    if (n_slots < 1 || n_slots > alac::MAX_SLOTS || bit_size + 9 > 32)
+// bs: (L,) per-lane bit sizes, each at most bit_size_cap, which sizes
+// the n_slots; num: (L,) per-lane sample counts, or nullptr for S.
+extern "C" int alac_emit(const int* xt, const int* start_bits, const int* bs,
+                         const int* num, int* words, int* keys, int* end_bits,
+                         int* tail_val, int* tail_key, int L, int S,
+                         int bit_size_cap, int n_slots, unsigned mb0,
+                         unsigned pb, int kb, unsigned wb, void* stream) {
+    // the escape token (9-bit prefix + payload) is one <= 32-bit append
+    if (n_slots < 1 || n_slots > alac::MAX_SLOTS ||
+        bit_size_cap + alac::MAX_PREFIX_32 > 32)
         return (int)cudaErrorInvalidValue;
     if (L <= 0) return (int)cudaGetLastError();
     const int threads = 32;
     const int blocks = (L + threads - 1) / threads;
     alac::emit_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        xt, start_bits, (unsigned*)words, (unsigned*)keys, end_bits,
-        (unsigned*)tail_val, (unsigned*)tail_key, L, S, bit_size, n_slots,
-        mb0, pb, kb, wb);
+        xt, start_bits, bs, num, (unsigned*)words, (unsigned*)keys, end_bits,
+        (unsigned*)tail_val, (unsigned*)tail_key, L, S, n_slots, mb0, pb, kb,
+        wb);
     return (int)cudaGetLastError();
 }

@@ -1,19 +1,22 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their wrappers.
 
-One wrapper per kernel (cost, emit, merge, decode).  A wrapper checks
-its inputs, allocates its outputs, and for CUDA tensors launches its
-kernel (or raises — there is no fallback); for CPU tensors it runs the
-plain torch version from ``alacjax_torch.ops``.  ``LAUNCHES`` counts
-kernel launches, so a run can show that a path went through the
-kernels: the decode wrapper counts its 8-tap instance under ``decode``
-and its 16/30-tap instances under ``decode_hi``.
+One wrapper per kernel: cost (the fused predict + Rice-cost search
+scan), emit (Rice emission), merge (packet compaction), decode (the
+channel decode at 8 taps, and at 16/30 taps as ``decode_hi``), predict
+(the standalone predictor) and rice_cost (its second, cost-only pass).
+A wrapper checks its inputs, allocates its outputs, and for CUDA tensors
+launches its kernel (or raises — there is no fallback); for CPU tensors
+it runs the plain torch version from ``alacjax_torch.ops``.
+``LAUNCHES`` counts kernel launches, one key per kernel, so a run can
+show that a path went through the kernels.
 """
 
 from __future__ import annotations
 
 import torch
 
-LAUNCHES = {"cost": 0, "emit": 0, "merge": 0, "decode": 0, "decode_hi": 0}
+LAUNCHES = {"cost": 0, "emit": 0, "merge": 0, "decode": 0, "decode_hi": 0,
+            "predict": 0, "rice_cost": 0}
 
 
 def reset_launches() -> None:
@@ -44,6 +47,15 @@ def expect(t, name: str, shape: tuple, dtype=torch.int32) -> None:
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def lane_vector(v, L: int, device, name: str):
+    """A per-lane int32 (L,) argument: an int widens to a vector, a
+    tensor is checked."""
+    if isinstance(v, int):
+        return torch.full((L,), v, dtype=torch.int32, device=device)
+    expect(v, name, (L,))
+    return v
 
 
 def stream_ptr(t) -> int:

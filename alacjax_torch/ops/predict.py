@@ -1,12 +1,15 @@
-"""Batched adaptive FIR predictor, encode side, fused with adaptive-Rice
-cost machines (counterpart of alacjax/ops/predict.py; oracle:
-alacjax.oracle.dp; reference: codec/dp_enc.c).
+"""Batched adaptive FIR predictor, encode side, alone or fused with
+adaptive-Rice cost machines (counterpart of alacjax/ops/predict.py;
+oracle: alacjax.oracle.dp; reference: codec/dp_enc.c).
 
 The recurrence is sequential in the sample axis, so the plain version
 is a Python loop over S with every lane in a (B,) tensor.  It is the
-version the cost kernel (alacjax_torch/kernels/cost.py) is held to.
-The order is a static int (the encoder's search runs one call per
-order, as the TPU path does); chanbits and denshift are static too.
+version the cost kernel (alacjax_torch/kernels/cost.py) and the
+predictor kernel (alacjax_torch/kernels/predict.py) are held to.  The
+order is a static int (the encoder's search runs one call per order, as
+the TPU path does) and so is denshift; chanbits is an int or a per-lane
+(B,) tensor (stacked SCE and CPE channels differ by one bit), and the
+cost machines take a per-lane sample count ``num`` (partial frames).
 Arithmetic is int64 wrapped to int32 wherever the reference's int32
 wraps can be observed (a sign, a compare or a shift).
 """
@@ -15,28 +18,36 @@ from __future__ import annotations
 
 import torch
 
+from alacjax.types import kALACMaxCoefs
+
 from . import rice
 from .tutils import I32, I64, iota1, sign_extend, wrap_i32
 
 
-def _scan_cost(x, coefs0, na: int, chanbits: int, denshift: int, mb0: int,
-               pb: int, kb: int, wb: int, dual: bool):
-    """predict._scan_general, encode branch with one or two cost
-    machines.  Returns (res (B,S) i32, coefs (B,16) i32, cost1 (B,) i32,
+def _scan_cost(x, coefs0, na: int, chanbits, denshift: int, rice_params,
+               dual: bool, num=None):
+    """predict._scan_general, encode branch, with no cost machine
+    (``rice_params`` None: pc_block), one, or two (``dual``).  The cost
+    machines stop at each lane's ``num``; the walk runs all S samples.
+    Returns (res (B,S) i32, coefs (B,16) i32, cost1 (B,) i32 or None,
     cost2 (B,) i32 or None)."""
     B, S = x.shape
     dev = x.device
     x = wrap_i32(x)
     coefs0 = coefs0.to(I64)
+    chanbits = rice.lane_arg(chanbits)
     den = max(int(denshift), 1)
     denhalf = 1 << (den - 1)
     zero = torch.zeros((B,), dtype=I64, device=dev)
     lags = torch.zeros((B, na + 1), dtype=I64, device=dev)
     coefs = sign_extend(coefs0[:, :na], 16)
     weight = na - iota1(na, device=dev)[None, :]   # (na - k) per tap
-    kw = dict(S=S, bit_size=chanbits, pb=pb, kb=kb, wb=wb)
-    st1 = rice.init_state(B, mb0, dev)
-    st2 = rice.init_state(B, mb0, dev)
+    if rice_params is not None:
+        mb0, pb, kb, wb = rice_params
+        kw = dict(S=S if num is None else rice.lane_arg(num),
+                  bit_size=chanbits, pb=pb, kb=kb, wb=wb)
+        st1 = rice.init_state(B, mb0, dev)
+        st2 = rice.init_state(B, mb0, dev)
     tot1 = zero
     tot2 = zero
     prev_out = zero
@@ -74,6 +85,8 @@ def _scan_cost(x, coefs0, na: int, chanbits: int, denshift: int, mb0: int,
                               torch.where(pos, -sgn, sgn), 0)
             coefs = sign_extend(coefs + upd, 16)
         lags = torch.cat([x_t[:, None], lags[:, :na]], dim=1)
+        if rice_params is None:
+            continue
 
         st1, bits = rice.step_bits(out, t, st1, **kw)
         tot1 = tot1 + bits
@@ -83,6 +96,10 @@ def _scan_cost(x, coefs0, na: int, chanbits: int, denshift: int, mb0: int,
             tot2 = tot2 + bits
             prev_out = out
 
+    res = torch.stack(out_cols, dim=1).to(I32)
+    coefs = torch.cat([coefs, coefs0[:, na:]], dim=1).to(I32)
+    if rice_params is None:
+        return res, coefs, None, None
     # virtual end step (t == S): flush a pending zero-run token
     one = zero + 1
     _, bits = rice.step_bits(one, S, st1, **kw)
@@ -91,43 +108,62 @@ def _scan_cost(x, coefs0, na: int, chanbits: int, denshift: int, mb0: int,
     if dual:
         _, bits = rice.step_bits(one, S, st2, **kw)
         cost2 = (tot2 + bits).to(I32)
-    res = torch.stack(out_cols, dim=1).to(I32)
-    coefs = torch.cat([coefs, coefs0[:, na:]], dim=1).to(I32)
     return res, coefs, cost1, cost2
 
 
-def pc_block_cost_coefs(x, coefs0, numactive: int, chanbits: int,
-                        denshift: int, mb0: int, pb: int, kb: int, wb: int):
+def pc_block(x, coefs0, numactive: int, chanbits, denshift: int = 9):
+    """Batched forward prediction (predict._run, encode): (B, S) samples
+    -> (residuals (B, S), adapted coefs (B, 16)), int32.  ``numactive``
+    is a static order 1..16, or 0 (the samples themselves) or 31 (their
+    first difference); ``coefs0`` None starts from zeros."""
+    B, _ = x.shape
+    if coefs0 is None:
+        coefs0 = torch.zeros((B, kALACMaxCoefs), dtype=I32, device=x.device)
+    if numactive == 0:
+        return x.to(I32), coefs0.to(I32)
+    if numactive == 31:
+        return wrap_diff(x, chanbits), coefs0.to(I32)
+    if not 1 <= numactive <= kALACMaxCoefs:
+        raise ValueError(f"static order {numactive} is not 0, 1..16 or 31")
+    res, coefs, _, _ = _scan_cost(x, coefs0, numactive, chanbits, denshift,
+                                  None, dual=False)
+    return res, coefs
+
+
+def pc_block_cost_coefs(x, coefs0, numactive: int, chanbits, denshift: int,
+                        mb0: int, pb: int, kb: int, wb: int, num=None):
     """Fused forward prediction + Rice cost of the residuals (one machine,
-    the mixres trial's route): (B, S) samples -> (residuals (B, S),
-    cost (B,), adapted coefs (B, 16))."""
+    the mixres trial's and fast mode's route): (B, S) samples ->
+    (residuals (B, S), cost (B,), adapted coefs (B, 16))."""
     res, coefs, c1, _ = _scan_cost(x, coefs0, numactive, chanbits, denshift,
-                                   mb0, pb, kb, wb, dual=False)
+                                   (mb0, pb, kb, wb), dual=False, num=num)
     return res, c1, coefs
 
 
-def pc_block_cost(x, coefs0, numactive: int, chanbits: int, denshift: int,
-                  mb0: int, pb: int, kb: int, wb: int):
+def pc_block_cost(x, coefs0, numactive: int, chanbits, denshift: int,
+                  mb0: int, pb: int, kb: int, wb: int, num=None):
     """(B, S) samples -> (residuals (B, S), rice cost bits (B,))."""
     res, cost, _ = pc_block_cost_coefs(x, coefs0, numactive, chanbits,
-                                       denshift, mb0, pb, kb, wb)
+                                       denshift, mb0, pb, kb, wb, num=num)
     return res, cost
 
 
-def pc_block_cost2(x, coefs0, numactive: int, chanbits: int, denshift: int,
-                   mb0: int, pb: int, kb: int, wb: int):
+def pc_block_cost2(x, coefs0, numactive: int, chanbits, denshift: int,
+                   mb0: int, pb: int, kb: int, wb: int, num=None):
     """Fused forward prediction + Rice cost of BOTH stage candidates:
     (B, S) samples -> (residuals (B, S), cost1 (B,), cost2 (B,),
     coefs (B, 16)).  cost1 prices the FIR residuals (mode 0), cost2
     their first difference (mode != 0, the two-stage cascade)."""
     res, coefs, c1, c2 = _scan_cost(x, coefs0, numactive, chanbits,
-                                    denshift, mb0, pb, kb, wb, dual=True)
+                                    denshift, (mb0, pb, kb, wb), dual=True,
+                                    num=num)
     return res, c1, c2, coefs
 
 
-def wrap_diff(res, chanbits: int):
+def wrap_diff(res, chanbits):
     """Stage-2 emission residual: pc_block(res, 31) == first difference
-    with chanbits wraparound (dp_enc.c :: pc_block numactive==31)."""
+    with chanbits (an int or per-lane (B,)) wraparound (dp_enc.c ::
+    pc_block numactive==31)."""
     res = wrap_i32(res)
     diffs = sign_extend(res[:, 1:] - res[:, :-1], chanbits)
     return torch.cat([res[:, :1], diffs], dim=1).to(I32)

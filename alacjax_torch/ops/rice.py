@@ -74,12 +74,15 @@ def init_state(B: int, mb0: int, device=None):
             z, z, z)
 
 
-def encode_step_tokens(x, t: int, state, *, S: int, bit_size, pb: int,
-                       kb: int, wb: int):
+def encode_step_tokens(x, t: int, state, *, S, bit_size, pb: int, kb: int,
+                       wb: int):
     """One step of the token machine (rice._encode_step_tokens): returns
     (new_state, vals, lens) with token slots [zero-run codeword, residual
     codeword, escape payload].  ``t == S`` is the virtual end step that
-    flushes a pending run token.  ``x`` is the (B,) residual."""
+    flushes a pending run token.  ``x`` is the (B,) residual.  ``S`` and
+    ``bit_size`` are ints or per-lane (B,) int64 tensors: with a per-lane
+    ``S`` (partial frames) a lane is past its end once t >= S, so its
+    pending run flushes exactly at S and later steps emit nothing."""
     mb, in_run, run_len, run_kz, run_mz = state
     valid = t < S
     x = wrap_i32(x)
@@ -88,7 +91,7 @@ def encode_step_tokens(x, t: int, state, *, S: int, bit_size, pb: int,
     run_end_nonzero = in_run & nonzero & valid
     run_len_new = run_len + 1
     cap = in_run & ~nonzero & valid & (run_len_new >= 65535)
-    flush = in_run & (not valid)
+    flush = in_run & (~valid if isinstance(valid, torch.Tensor) else not valid)
     emit_run = run_end_nonzero | cap | flush
     nz = torch.where(cap, run_len_new, run_len)
     run_val, run_bits = _dyn_code_16(run_mz, run_kz, nz)
@@ -103,7 +106,7 @@ def encode_step_tokens(x, t: int, state, *, S: int, bit_size, pb: int,
     n = (x.abs() * 2 - (x < 0).to(I64) - zmode) & MASK32
     esc, val1, len1 = _dyn_code_32(m, k, n)
     len1 = torch.where(code_now, len1, 0)
-    len2 = torch.where(code_now & esc, torch.as_tensor(bit_size, device=x.device), 0)
+    len2 = torch.where(code_now & esc, bit_size, 0)
 
     # mb EMA update + clamp (uint32 wrap: pb*mb wraps before the shift)
     mb_upd = (pb * (n + zmode) + mb - (((pb * mb) & MASK32) >> PBSHIFT)) & MASK32
@@ -129,11 +132,19 @@ def step_bits(x, t: int, state, **kw):
     return state, lens[0] + lens[1] + lens[2]
 
 
-def rice_cost(res, bit_size: int, mb0: int, pb: int, kb: int, wb: int):
+def lane_arg(v):
+    """An int, or a per-lane tensor as int64 (the machines' arithmetic)."""
+    return v if isinstance(v, int) else v.to(I64)
+
+
+def rice_cost(res, bit_size, mb0: int, pb: int, kb: int, wb: int, num=None):
     """Total Rice bits per frame lane (B,) int32 — the search's cost
-    metric (rice.rice_cost with num=None)."""
+    metric (rice.rice_cost).  ``bit_size`` is an int or per-lane (B,);
+    ``num`` (per-lane (B,), <= S) costs only each lane's first num
+    samples (partial frames)."""
     B, S = res.shape
-    kw = dict(S=S, bit_size=bit_size, pb=pb, kb=kb, wb=wb)
+    kw = dict(S=S if num is None else lane_arg(num),
+              bit_size=lane_arg(bit_size), pb=pb, kb=kb, wb=wb)
     state = init_state(B, mb0, res.device)
     total = torch.zeros((B,), dtype=I64, device=res.device)
     ones = torch.ones((B,), dtype=I64, device=res.device)
@@ -161,22 +172,32 @@ def _append_bits(acc, fill, wcount, v, L):
     return acc2, fill2, wcount + ge.to(I64), out_word, ge
 
 
-def rice_encode_words(res, bit_size: int, mb0: int, pb: int, kb: int,
-                      wb: int, start_bits):
+def emit_slots(bit_size_cap: int) -> int:
+    """Word slots per step: at most (31 + run <= 25 + prefix 9 + the
+    escape payload) // 32 words complete in one step."""
+    return (31 + 25 + MAX_PREFIX_32 + bit_size_cap) // 32
+
+
+def rice_encode_words(res, bit_size, mb0: int, pb: int, kb: int, wb: int,
+                      start_bits, bit_size_cap: int | None = None, num=None):
     """Residuals (B, S) -> phase-aligned packed word chunks
-    (rice.rice_encode_words with emit_flush=False, num=None: the codec's
-    mode, which leaves the final partial word out of the chunks as the
-    tail).
+    (rice.rice_encode_words with emit_flush=False: the codec's mode,
+    which leaves the final partial word out of the chunks as the tail).
+    ``bit_size`` is an int or a per-lane (B,) tensor whose values are at
+    most ``bit_size_cap`` (which sizes the slots); ``num`` (per-lane
+    (B,), <= S) encodes only each lane's first num samples.
 
     Returns (chunk_words (B, n_slots*(S+1)), chunk_keys (same) — int32
     bit patterns, -1 (0xFFFFFFFF) marking empty slots — end_bits (B,),
     tail_val (B,), tail_key (B,))."""
     B, S = res.shape
     dev = res.device
-    kw = dict(S=S, bit_size=bit_size, pb=pb, kb=kb, wb=wb)
+    kw = dict(S=S if num is None else lane_arg(num),
+              bit_size=lane_arg(bit_size), pb=pb, kb=kb, wb=wb)
     start_bits = start_bits.to(I64)
     base_word = start_bits >> 5
-    n_slots = (31 + 25 + MAX_PREFIX_32 + bit_size) // 32
+    n_slots = emit_slots(bit_size if isinstance(bit_size, int)
+                         else bit_size_cap)
     words = torch.zeros((B, S + 1, n_slots), dtype=I64, device=dev)
     keys = torch.full((B, S + 1, n_slots), MASK32, dtype=I64, device=dev)
 

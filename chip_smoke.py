@@ -10,8 +10,13 @@ Phases, each of which exits nonzero on failure:
      spills for each kernel instance;
   3. kernels against their plain torch versions on the card, on recorded
      inputs: every kernel call of one device-resident encode + decode of
-     the phase-4 corpus, and one call per distinct (taps, chanbits) of
-     the phase-5 and phase-6 decodes; the results must be exactly equal;
+     the phase-4 corpus, one call per distinct (taps, chanbits) of the
+     phase-5 and phase-6 decodes, and one call per distinct signature of
+     the phase-7 5.1 encode and of the standalone-predictor encodes
+     (phase 8's stereo corpus and the 5.1 corpus) — a new signature's
+     call at S = 4096 is compared on its first PREFIX samples (with num
+     clamped there), a causal prefix being a whole input of its own; the
+     results must be exactly equal;
   4. the main path: TorchCodec encode_frames -> decode_frames_ex on the
      bench corpus (bench.py :: make_music, B=4096 frames of 16-bit
      stereo, S=4096): lossless, no frame flagged, the first 256 packets
@@ -26,16 +31,29 @@ Phases, each of which exits nonzero on failure:
   6. the retry ladder: decode_frames_ex of B=4096 stereo-16 packets with
      forced predictor orders 9..30 (modes 0 and 15): the 16- and 30-tap
      decodes both run, no frame reaches the oracle, the PCM equals the
-     native decoder's; decode seconds beside phase 4's 8-tap decode.
-Each path (phases 4-6) runs with the launch counts set to 0 just before
+     native decoder's; decode seconds beside phase 4's 8-tap decode;
+  7. encode of every layout: encode_frames_ex of phase 5's PCM and
+     sample counts (B=4096, 24-bit 5.1 with partial frames): every
+     packet byte-identical to phase 5's native C++ packet at its
+     position, decoded back losslessly with no frame to the oracle;
+     host-API and device-resident encode seconds, frames/s and peak
+     memory; then B=512 each of 20-bit stereo, 32-bit stereo, 16-bit
+     stereo in fast mode and 16-bit stereo with the exhaustive search,
+     every packet byte-identical to the native C++ encoder's;
+  8. the standalone-predictor route: phase 4's corpus encoded with
+     predict_legacy=True: every packet equal to phase 4's, the predict
+     and rice_cost kernels launched and the cost kernel never; its
+     device-resident encode seconds beside phase 4's.
+Each path (phases 4-8) runs with the launch counts set to 0 just before
 it and read just after; a kernel of the path that was not launched
 fails the run.  The line before the last is a JSON object of per-kernel
 results ("launches" sums the paths' counts; "ms" and "plain_ms" sum a
-kernel's compared calls); the last line is the JSON result line.
-``--profile DIR`` also writes torch.profiler tables of one
-device-resident encode + decode of phase 4 (DIR/profile.txt), one
-phase-5 decode (DIR/profile_51.txt) and the three phase-6 rungs
-(DIR/profile_ladder.txt).
+kernel's compared calls, on the inputs compared); the last line is the
+JSON result line.  ``--profile DIR`` also writes torch.profiler tables
+of one device-resident encode + decode of phase 4 (DIR/profile.txt), one
+phase-5 decode (DIR/profile_51.txt), the three phase-6 rungs
+(DIR/profile_ladder.txt), one phase-7 5.1 encode (DIR/profile_enc51.txt)
+and one phase-8 encode (DIR/profile_legacy.txt).
 """
 
 import contextlib
@@ -51,25 +69,48 @@ S = 4096                 # samples per frame
 N_NATIVE = 256           # packets held against the native C++ codec
 N_DISTINCT_51 = 512      # distinct 24-bit 5.1 frames, tiled to B
 N_DISTINCT_HI = 256      # distinct forced-order packets, tiled to B
+N_SMALL = 512            # frames of each small phase-7 encode
 PARTIAL_EVERY = 64       # every 64th 5.1 frame is a partial frame
+PREFIX = 1024            # samples of a new signature's phase-3 compare
 REPLACES = {
     "cost": "alacjax/ops/pallas/cost_pallas.py:346",
     "emit": "alacjax/ops/pallas/emit_pallas.py:257",
     "merge": "alacjax/ops/pallas/merge.py:98",
     "decode": "alacjax/ops/pallas/decode_step.py:121",
     "decode_hi": "alacjax/ops/pallas/decode_pallas.py:381",
+    "predict": "alacjax/ops/pallas/predict_pallas.py:128",
+    # a glue kernel: the XLA scan the predict_legacy route prices with
+    "rice_cost": "alacjax/ops/rice.py:195",
 }
 SOURCES = {name: f"alacjax_torch/csrc/{name}.cu" for name in REPLACES}
 SOURCES["decode_hi"] = SOURCES["decode"]       # the 16/30-tap instances
-WRAPPERS = (("alacjax_torch.kernels.cost", "pc_block_cost2"),
-            ("alacjax_torch.kernels.emit", "rice_encode_words"),
-            ("alacjax_torch.kernels.merge", "merge_sorted_chunks"),
-            ("alacjax_torch.kernels.decode", "decode_channel"))
+SOURCES["rice_cost"] = SOURCES["predict"]      # its cost-only pass
+# (wrapper module, wrapper, its plain version, LAUNCHES key); the decode
+# wrapper's key follows its tap count
+WRAPPERS = (
+    ("alacjax_torch.kernels.cost", "pc_block_cost2", "plain", "cost"),
+    ("alacjax_torch.kernels.emit", "rice_encode_words", "plain", "emit"),
+    ("alacjax_torch.kernels.merge", "merge_sorted_chunks", "plain", "merge"),
+    ("alacjax_torch.kernels.decode", "decode_channel", "plain", None),
+    ("alacjax_torch.kernels.predict", "pc_block", "plain_pc_block",
+     "predict"),
+    ("alacjax_torch.kernels.predict", "rice_cost", "plain_rice_cost",
+     "rice_cost"),
+)
 PATH_KERNELS = {         # the kernels each path must launch
     "phase 4": ("cost", "emit", "merge", "decode"),
     "phase 5": ("decode",),
     "phase 6": ("decode", "decode_hi"),
+    "phase 7": ("cost", "emit", "merge"),
+    "phase 8": ("predict", "rice_cost", "emit", "merge"),
 }
+SMALL_ENCODES = (        # phase 7's B=512 stereo encodes
+    ("20-bit stereo", dict(bit_depth=20)),
+    ("32-bit stereo", dict(bit_depth=32)),
+    ("16-bit stereo, fast_mode", dict(bit_depth=16, fast_mode=True)),
+    ("16-bit stereo, exhaustive search",
+     dict(bit_depth=16, search="exhaustive")),
+)
 
 
 def fail(msg: str) -> None:
@@ -189,24 +230,20 @@ def forced_order_packet(cfg, pcm, orders, modes, mixres=2):
     return bits.to_bytes()
 
 
-def kernel_of(mod, kwargs) -> str:
-    """The kernel (LAUNCHES key) a wrapper call launches."""
-    if hasattr(mod, "counter"):
-        return mod.counter(kwargs.get("taps", mod.fused_decode.TAPS))
-    return mod.__name__.rsplit(".", 1)[1]
-
-
 @contextlib.contextmanager
 def recording(calls):
     """Wrap every kernel wrapper with a recorder that appends
-    (kernel, wrapper module, wrapper, args, kwargs) to ``calls``."""
+    (kernel, wrapper, plain version, args, kwargs) to ``calls``."""
     saved = []
-    for mod_name, fn_name in WRAPPERS:
+    for mod_name, fn_name, plain_name, key in WRAPPERS:
         mod = importlib.import_module(mod_name)
         wrapper = getattr(mod, fn_name)
 
-        def recorder(*args, _mod=mod, _fn=wrapper, **kwargs):
-            calls.append((kernel_of(_mod, kwargs), _mod, _fn, args, kwargs))
+        def recorder(*args, _mod=mod, _fn=wrapper, _plain=plain_name,
+                     _key=key, **kwargs):
+            name = _key or _mod.counter(kwargs.get("taps",
+                                                   _mod.fused_decode.TAPS))
+            calls.append((name, _fn, getattr(_mod, _plain), args, kwargs))
             return _fn(*args, **kwargs)
 
         saved.append((mod, fn_name, wrapper))
@@ -218,32 +255,92 @@ def recording(calls):
             setattr(mod, fn_name, wrapper)
 
 
-def one_per_signature(calls):
-    """The first call of each distinct (kernel, taps, chanbits)."""
-    seen, out = set(), []
+def signature(call):
+    """What sets a call apart: the kernel, the sample count, the static
+    arguments' values (order, chanbits, dual, taps, ...) and which
+    arguments are per-lane tensors."""
+    import torch
+    name, _, _, args, kwargs = call
+
+    def part(v):
+        return "lane" if isinstance(v, torch.Tensor) else v
+    return ((name, tuple(args[0].shape[1:])) + tuple(map(part, args[1:]))
+            + tuple((k, part(v)) for k, v in sorted(kwargs.items())))
+
+
+def one_per_signature(calls, seen=None):
+    """The first call of each signature not in ``seen`` (updated)."""
+    seen = set() if seen is None else seen
+    out = []
     for call in calls:
-        name, _, _, args, kwargs = call
-        key = (name, kwargs.get("taps"), args[3])
+        key = signature(call)
         if key not in seen:
             seen.add(key)
             out.append(call)
     return out
 
 
-def compare_kernels(calls, rows):
+def prefix(call, n: int):
+    """A scan kernel's call cut to its first n samples: the input's
+    leading columns, per-lane sample counts clamped to n.  Merge and
+    decode calls, and calls already at most n long, stay whole."""
+    import torch
+    name, wrapper, plain, args, kwargs = call
+    if name not in ("cost", "emit", "predict", "rice_cost") or \
+            args[0].shape[1] <= n:
+        return call, False
+    args = (args[0][:, :n].contiguous(),) + tuple(args[1:])
+    if kwargs.get("num") is not None:
+        kwargs = dict(kwargs, num=torch.clamp(kwargs["num"], max=n))
+    return (name, wrapper, plain, args, kwargs), True
+
+
+def describe(name: str, args, kwargs) -> str:
+    """A call's static order / chanbits / taps and its per-lane
+    arguments, for the phase-3 lines."""
+    def v(x):
+        return "lane" if hasattr(x, "shape") else x
+    parts = []
+    if name in ("cost", "predict"):
+        parts = [f"order {args[2]}", f"chanbits {v(args[3])}"]
+    elif name in ("emit", "rice_cost"):
+        parts = [f"bit_size {v(args[1])}"]
+    elif name in ("decode", "decode_hi"):
+        parts = [f"taps {kwargs['taps']}", f"chanbits {v(args[3])}"]
+    if name == "cost":
+        parts.append(f"dual {kwargs.get('dual', True)}")
+    if name in ("cost", "emit", "rice_cost") and \
+            kwargs.get("num") is not None:
+        parts.append("num lane")
+    return " ".join(parts)
+
+
+def compare_kernels(calls, rows, cut: bool = False):
     """Phase 3: each recorded call through its kernel and through its
-    plain version on the same inputs, on the card."""
-    for name, mod, wrapper, args, kwargs in calls:
+    plain version on the same inputs, on the card.  With ``cut`` a scan
+    call longer than PREFIX samples is compared on its first PREFIX
+    (its kernel time on the whole input is printed beside)."""
+    for call in calls:
+        whole = call
+        call, was_cut = prefix(call, PREFIX) if cut else (call, False)
+        name, wrapper, plain, args, kwargs = call
         got, ms = timed(lambda: wrapper(*args, **kwargs), reps=3)
-        want, plain_ms = timed_once(lambda: mod.plain(*args, **kwargs))
-        err = max_abs_err(got, want)
+        want, plain_ms = timed_once(lambda: plain(*args, **kwargs))
+        err = max_abs_err(got if isinstance(got, tuple) else (got,),
+                          want if isinstance(want, tuple) else (want,))
         row = rows[name]
         shape = "x".join(str(d) for d in args[0].shape)
-        sig = (f" taps {kwargs['taps']} chanbits {args[3]}"
-               if "taps" in kwargs else "")
-        print(f"  {name:9s} call {row['calls']} on {shape:12s}{sig} "
+        note = ""
+        if was_cut:
+            _, full_ms = timed(lambda: whole[1](*whole[3], **whole[4]),
+                               reps=3)
+            note = (f"   [first {PREFIX} samples; kernel on the whole "
+                    f"{'x'.join(map(str, whole[3][0].shape))}: "
+                    f"{full_ms:.4f} ms]")
+        print(f"  {name:9s} call {row['calls']} on {shape:12s} "
+              f"{describe(name, args, kwargs)}: "
               f"kernel {ms:10.4f} ms   plain {plain_ms:12.3f} ms   "
-              f"max_abs_err {err}", flush=True)
+              f"max_abs_err {err}{note}", flush=True)
         if err != 0:
             fail(f"{name} kernel disagrees with its plain version")
         row["calls"] += 1
@@ -331,7 +428,8 @@ def main_path(pcm, cfg, codec, counts):
           f"{dec_t / iters} s per batch of {len(pcm)}, "
           f"{len(pcm) * iters / (enc_t + dec_t)} enc+dec frames/s, "
           f"peak device memory {peak} GiB")
-    return dict(host_dec_s=dec_s, dev_dec_s=dec_t / iters)
+    return dict(host_dec_s=dec_s, dev_dec_s=dec_t / iters,
+                dev_enc_s=enc_t / iters, packets=packets)
 
 
 def make_51(cfg):
@@ -422,7 +520,7 @@ def make_hi(cfg):
     return np.tile(x, (reps, 1, 1)), packets * reps
 
 
-def retry_ladder(cfg, pcm, packets, counts, dec8):
+def retry_ladder(cfg, pcm, packets, counts, main4):
     """Phase 6: the ladder through the host API, then each rung's
     device-resident decode."""
     import numpy as np
@@ -451,15 +549,116 @@ def retry_ladder(cfg, pcm, packets, counts, dec8):
     print(f"  host API: taps {taps}, 0 frames to the oracle, PCM equal to "
           f"the native C++ decoder; ladder decode {dec_s} s "
           f"({len(packets) / dec_s} frames/s) against phase 4's 8-tap "
-          f"decode {dec8['host_dec_s']} s")
+          f"decode {main4['host_dec_s']} s")
     w = device_words(codec, packets)
     rungs = []
     for t in (8, 16, 30):
         _, ms = timed_once(lambda: codec._decode(w, taps=t))
         rungs.append(f"taps {t} {ms / 1e3} s")
     print(f"  device-resident decode per rung: {', '.join(rungs)}; phase 4's "
-          f"8-tap decode {dec8['dev_dec_s']} s")
+          f"8-tap decode {main4['dev_dec_s']} s")
     return w
+
+
+def device_encode(codec, x, nums=None, iters: int = 3):
+    """(words of the last call, mean seconds) of ``iters`` device-resident
+    encodes after one warm-up, host clock around synchronised calls."""
+    import torch
+    codec._encode(x, nums)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        words, _ = codec._encode(x, nums)
+    torch.cuda.synchronize()
+    return words, (time.perf_counter() - t0) / iters
+
+
+def encode_layouts(codec51, pcm, packets51, nums, x, n, counts):
+    """Phase 7: the 24-bit 5.1 encode with partial frames through the
+    host API (against phase 5's native packets), its decode back, the
+    device-resident encode of the same PCM (x) and counts (n) already on
+    the card; then the small stereo encodes."""
+    import numpy as np
+    import torch
+    from alacjax import native
+    from alacjax_torch import AlacConfig, TorchCodec
+    from bench import make_music
+
+    torch.cuda.reset_peak_memory_stats()
+    with path_run("phase 7", counts):
+        t0 = time.perf_counter()
+        packets = codec51.encode_frames_ex(pcm, nums)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+    bad = [i for i in range(len(pcm)) if packets[i] != packets51[i]]
+    if bad:
+        fail(f"phase 7: {len(bad)} of {len(pcm)} 5.1 packets differ from the "
+             f"native C++ encoder's (first: frame {bad[0]})")
+    codec51.fallback_frames = 0
+    out, got_nums = codec51.decode_frames_ex(packets)
+    if codec51.fallback_frames:
+        fail(f"phase 7: {codec51.fallback_frames} frames went to the oracle")
+    if not np.array_equal(got_nums, nums) or not np.array_equal(out, pcm):
+        fail("phase 7: the 5.1 encode does not round-trip losslessly")
+    print(f"  host API: {len(pcm)}/{len(pcm)} packets byte-identical to the "
+          f"native C++ encoder, round trip lossless, 0 frames to the "
+          f"oracle; encode {enc_s} s, {len(pcm) / enc_s} frames/s")
+    words, enc_t = device_encode(codec51, x, n)
+    if not torch.equal(words, device_words(codec51, packets)):
+        fail("phase 7: device-resident words differ from the host API's")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  device-resident: encode {enc_t} s per batch of {len(pcm)}, "
+          f"{len(pcm) / enc_t} frames/s, peak device memory {peak} GiB")
+    del words
+
+    for i, (label, kw) in enumerate(SMALL_ENCODES):
+        cfg = AlacConfig(num_channels=2, frame_length=S, sample_rate=44100,
+                         **kw)
+        hi = make_music(N_SMALL, S, seed=40 + i)
+        low = cfg.bit_depth - 16
+        rng = np.random.default_rng(40 + i)
+        xs = ((hi.astype(np.int32) << low)
+              | rng.integers(0, 1 << low, hi.shape, dtype=np.int32))
+        codec = TorchCodec(cfg, chunk=N_SMALL, device="cuda")
+        t0 = time.perf_counter()
+        got = codec.encode_frames(xs)
+        enc_s = time.perf_counter() - t0
+        enc = native.NativeEncoder(cfg, independent_frames=True)
+        bad = [j for j, f in enumerate(xs) if enc.encode_packet(f) != got[j]]
+        if bad:
+            fail(f"phase 7: {label}: {len(bad)} of {N_SMALL} packets differ "
+                 f"from the native C++ encoder's (first: frame {bad[0]})")
+        print(f"  {label}: {N_SMALL}/{N_SMALL} packets byte-identical to the "
+              f"native C++ encoder; host-API encode {enc_s} s (first call "
+              f"of this configuration)")
+
+
+def predict_legacy_route(cfg, pcm, counts, main):
+    """Phase 8: phase 4's corpus through the standalone predictor kernel
+    and the Rice cost kernel: the same packets, no cost kernel."""
+    import torch
+    from alacjax_torch import TorchCodec
+
+    codec = TorchCodec(cfg, chunk=B, device="cuda", predict_legacy=True)
+    with path_run("phase 8", counts):
+        t0 = time.perf_counter()
+        packets = codec.encode_frames(pcm)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+    if counts["phase 8"]["cost"]:
+        fail("phase 8: the cost kernel ran on the predict_legacy route")
+    bad = [i for i in range(len(pcm)) if packets[i] != main["packets"][i]]
+    if bad:
+        fail(f"phase 8: {len(bad)} packets differ from phase 4's "
+             f"(first: frame {bad[0]})")
+    x = torch.from_numpy(pcm).to("cuda")
+    _, enc_t = device_encode(codec, x)
+    print(f"  host API: {len(pcm)}/{len(pcm)} packets equal to phase 4's, "
+          f"cost kernel launched 0 times; encode {enc_s} s")
+    print(f"  device-resident encode {enc_t} s per batch of {len(pcm)} "
+          f"({len(pcm) / enc_t} frames/s) against phase 4's "
+          f"{main['dev_enc_s']} s through the cost kernel")
+    return codec, x
 
 
 def profile(fn, name: str):
@@ -482,6 +681,7 @@ def profile(fn, name: str):
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     t_start = time.perf_counter()
@@ -528,6 +728,8 @@ def main() -> int:
     codec = TorchCodec(cfg, chunk=B, device="cuda")
     codec51 = TorchCodec(cfg51, chunk=B, device="cuda")
     x = torch.from_numpy(pcm).to("cuda")
+    x51 = torch.from_numpy(pcm51).to("cuda")
+    n51 = torch.from_numpy(nums51.astype(np.int32)).to("cuda")
 
     # phase 3: kernels vs plain versions on recorded inputs
     print(f"phase 3: kernels vs plain torch on {kind} ({card})", flush=True)
@@ -542,11 +744,25 @@ def main() -> int:
             codec._decode(w_hi, taps=t)
     calls += one_per_signature(calls51) + one_per_signature(
         [c for c in calls_hi if c[0] == "decode_hi"])
-    del words, w_hi
+    del words, w_hi, calls51, calls_hi
     rows = {k: dict(calls=0, ms=0.0, plain_ms=0.0, max_abs_err=0)
             for k in REPLACES}
     compare_kernels(calls, rows)
-    del calls, calls51, calls_hi
+    # the new signatures: per-lane chanbits and num (the 5.1 encode) and
+    # the standalone-predictor route (stereo and 5.1)
+    seen = {signature(c) for c in calls}
+    del calls
+    legacy = TorchCodec(cfg, chunk=B, device="cuda", predict_legacy=True)
+    legacy51 = TorchCodec(cfg51, chunk=B, device="cuda", predict_legacy=True)
+    new_calls = []
+    for run in (lambda: codec51._encode(x51, n51), lambda: legacy._encode(x),
+                lambda: legacy51._encode(x51, n51)):
+        with recording([]) as rec:
+            run()
+        new_calls += one_per_signature(rec, seen)
+        del rec
+    compare_kernels(new_calls, rows, cut=True)
+    del new_calls, legacy, legacy51
     missing = [k for k, r in rows.items() if r["calls"] == 0]
     if missing:
         fail(f"kernels never compared with their plain versions: {missing}")
@@ -555,9 +771,8 @@ def main() -> int:
     # phase 4: main path
     print(f"phase 4: main path, B={B} stereo-16 frames of {S} on {kind} "
           f"({card})", flush=True)
-    dec8 = main_path(pcm, cfg, codec, counts)
+    main4 = main_path(pcm, cfg, codec, counts)
     profile(lambda: codec._decode(codec._encode(x)[0]), "profile.txt")
-    del x
 
     # phase 5: layouts and depths
     print(f"phase 5: B={B} 24-bit 5.1 frames of {S} on {kind} ({card})",
@@ -565,14 +780,29 @@ def main() -> int:
     w51 = layouts_and_depths(codec51, pcm51, packets51, nums51, counts)
     profile(lambda: codec51._decode(w51), "profile_51.txt")
     del w51
-    del pcm51, packets51
 
     # phase 6: the retry ladder
     print(f"phase 6: retry ladder, B={B} stereo-16 forced-order packets on "
           f"{kind} ({card})", flush=True)
-    w_hi = retry_ladder(cfg, pcm_hi, packets_hi, counts, dec8)
+    w_hi = retry_ladder(cfg, pcm_hi, packets_hi, counts, main4)
     profile(lambda: [codec._decode(w_hi, taps=t) for t in (8, 16, 30)],
             "profile_ladder.txt")
+    del w_hi, pcm_hi, packets_hi
+
+    # phase 7: encode of every layout
+    print(f"phase 7: encode, B={B} 24-bit 5.1 frames of {S} with partial "
+          f"frames, then B={N_SMALL} each of "
+          f"{', '.join(label for label, _ in SMALL_ENCODES)}, on {kind} "
+          f"({card})", flush=True)
+    encode_layouts(codec51, pcm51, packets51, nums51, x51, n51, counts)
+    profile(lambda: codec51._encode(x51, n51), "profile_enc51.txt")
+    del x51, n51, pcm51, packets51
+
+    # phase 8: the standalone-predictor route
+    print(f"phase 8: predict_legacy encode, B={B} stereo-16 frames of {S} on "
+          f"{kind} ({card})", flush=True)
+    legacy, x = predict_legacy_route(cfg, pcm, counts, main4)
+    profile(lambda: legacy._encode(x), "profile_legacy.txt")
 
     if "jax" in sys.modules:
         fail("jax was imported")

@@ -9,8 +9,8 @@ must be equal and the frames must come back exactly.  This file holds
 20-bit mono and 24-bit SCE+CPE (3 channels); test_torch_layouts_51.py
 holds 24-bit 5.1 and 32-bit stereo.  Also here: the two faults the
 decode of depths above 16 needed fixed (the Rice escape width of a
-24-bit channel, and the shift-byte block), and the encoder's refusal
-of a layout it does not cover.
+24-bit channel, and the shift-byte block), and the encoder's coverage
+of the same layouts (it refuses only persistent coefficient banks).
 """
 
 import numpy as np
@@ -22,7 +22,7 @@ from alacjax.codec import decode_frames_jit
 from alacjax.oracle import ALACEncoder
 from alacjax.types import AlacConfig, AlacParamError
 from alacjax_torch import TorchCodec
-from alacjax_torch.codec import decode_frames_device
+from alacjax_torch.codec import _encode_packet_chunks, decode_frames_device
 from alacjax_torch.ops import bitpack
 from conftest import gen_pcm
 
@@ -117,15 +117,22 @@ def test_24bit_shift_bytes_reinserted():
 
 @pytest.mark.parametrize("depth,nch", [(24, 6), (16, 3), (20, 2)])
 def test_encode_refuses_a_decode_only_layout(depth, nch):
-    """The decoder covers every layout and depth; the encoder does not
-    yet: the codec constructs and decodes, and encode_frames raises."""
+    """No layout is decode-only any more: the encoder covers every layout
+    and depth the decoder does, to the oracle's packets, and the codec
+    decodes them back.  What the encoder still refuses is persistent
+    coefficient banks (alacjax's stream encode), which it does not
+    port."""
     cfg = AlacConfig(bit_depth=depth, num_channels=nch, frame_length=64)
     codec = TorchCodec(cfg, chunk=2)
+    pcm = np.zeros((2, nch, 64), np.int32)
+    pcm[1, :, ::7] = 5
+    packets = codec.encode_frames(pcm)
+    enc = ALACEncoder(cfg, independent_frames=True)
+    assert packets == [enc.encode_packet(f) for f in pcm]
     with pytest.raises(AlacParamError):
-        codec.encode_frames(np.zeros((2, nch, 64), np.int32))
-    packets = [ALACEncoder(cfg, independent_frames=True).encode_packet(
-        np.zeros((nch, 64), np.int64))] * 2
+        _encode_packet_chunks(torch.from_numpy(pcm), cfg, codec.num_words,
+                              banks={})
     out, nums = codec.decode_frames_ex(packets)
     assert codec.fallback_frames == 0
     np.testing.assert_array_equal(nums, [64, 64])
-    assert not out.any()
+    np.testing.assert_array_equal(out, pcm)

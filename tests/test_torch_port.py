@@ -28,6 +28,7 @@ from alacjax_torch.kernels import cost as k_cost
 from alacjax_torch.kernels import decode as k_decode
 from alacjax_torch.kernels import emit as k_emit
 from alacjax_torch.kernels import merge as k_merge
+from alacjax_torch.kernels import predict as k_predict
 from alacjax_torch.ops import bitpack, fused_decode, predict, rice
 from alacjax_torch.state import init_coefs_batched
 
@@ -43,6 +44,7 @@ def test_import_leaves_jax_out():
             "import alacjax_torch, alacjax_torch.codec, alacjax_torch.kernels\n"
             "import alacjax_torch.state\n"
             "from alacjax_torch.kernels import cost, decode, emit, merge\n"
+            "from alacjax_torch.kernels import predict\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'alacjax.ops', 'alacjax.codec'))]\n"
             "print(bad)\n"
@@ -152,8 +154,15 @@ def test_cpu_tensors_take_the_plain_version(rng):
                                        KB0, WB, *per)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    got = k_predict.pc_block(x, c0, 8, 17, 9)
+    want = predict.pc_block(x, c0, 8, 17, 9)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(k_predict.rice_cost(x, 17, *RICE),
+                       rice.rice_cost(x, 17, *RICE))
     assert kernels.LAUNCHES == dict.fromkeys(
-        ("cost", "emit", "merge", "decode", "decode_hi"), 0)
+        ("cost", "emit", "merge", "decode", "decode_hi", "predict",
+         "rice_cost"), 0)
 
 
 def test_other_devices_raise_instead_of_falling_back(rng):
@@ -319,3 +328,110 @@ def test_51_24bit_decode_on_card(cuda):
     assert nums[7] == 100
     cpu_out, _ = TorchCodec(cfg, chunk=12).decode_frames_ex(packets)
     np.testing.assert_array_equal(out, cpu_out)
+
+
+def _lane_args(rng, L, S):
+    """Per-lane int32 chanbits (16, 17, 20, 21) and sample counts (some
+    lanes full, some partial down to 1)."""
+    cb = rng.choice([16, 17, 20, 21], L)
+    num = np.where(rng.random(L) < 0.5, S, rng.integers(1, S + 1, L))
+    num[:3] = (S, 1, S - 1)
+    return (torch.from_numpy(cb.astype(np.int32)),
+            torch.from_numpy(num.astype(np.int32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [1, 2, 4, 7, 8, 12, 16])
+def test_predict_kernel_on_card(cuda, order):
+    """Every static-order instance of the standalone predictor, with an
+    int and a per-lane chanbits, equals the plain pc_block."""
+    rng = np.random.default_rng(100 + order)
+    x, c0 = _small_inputs(rng, L=96, S=300)
+    cb, _ = _lane_args(rng, 96, 300)
+    for chanbits in (17, cb):
+        kernels.reset_launches()
+        got = k_predict.pc_block(x.to(cuda), c0.to(cuda), order,
+                                 chanbits if isinstance(chanbits, int)
+                                 else chanbits.to(cuda), 9)
+        assert kernels.LAUNCHES["predict"] == 1
+        _same(got, predict.pc_block(x, c0, order, chanbits, 9))
+
+
+@pytest.mark.cuda
+def test_rice_cost_kernel_on_card(cuda):
+    """The cost-only Rice pass with and without num, at an int and a
+    per-lane bit size, equals the plain rice_cost."""
+    rng = np.random.default_rng(7)
+    x, _ = _small_inputs(rng, L=96, S=300)
+    x[1] = torch.from_numpy(rng.integers(-2, 3, 300).astype(np.int32))
+    x[2, 100:] = 0
+    cb, num = _lane_args(rng, 96, 300)
+    for bit_size in (17, cb):
+        for n in (None, num):
+            got = k_predict.rice_cost(
+                x.to(cuda), bit_size if isinstance(bit_size, int)
+                else bit_size.to(cuda), *RICE,
+                num=None if n is None else n.to(cuda))
+            want = rice.rice_cost(x, bit_size, *RICE, num=n)
+            assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order,dual", [(4, True), (8, True), (8, False)])
+def test_cost_kernel_per_lane_on_card(cuda, order, dual):
+    """The cost kernel with per-lane chanbits and num equals its plain
+    version."""
+    rng = np.random.default_rng(200 + order)
+    x, c0 = _small_inputs(rng, L=96, S=300)
+    x[2, 150:] = 0
+    cb, num = _lane_args(rng, 96, 300)
+    got = k_cost.pc_block_cost2(x.to(cuda), c0.to(cuda), order, cb.to(cuda),
+                                9, *RICE, dual=dual, num=num.to(cuda))
+    _same(got, k_cost.plain(x, c0, order, cb, 9, *RICE, dual=dual, num=num))
+
+
+@pytest.mark.cuda
+def test_emit_kernel_per_lane_on_card(cuda):
+    """The emit kernel with per-lane bit sizes up to 21 (a 20-bit CPE)
+    and num equals its plain version."""
+    rng = np.random.default_rng(21)
+    x, _ = _small_inputs(rng, L=96, S=300)
+    x[3] = torch.from_numpy(rng.integers(-(1 << 20), 1 << 20, 300)
+                            .astype(np.int32))          # escapes at 21 bits
+    x[4, 10:] = 0
+    cb, num = _lane_args(rng, 96, 300)
+    start = torch.from_numpy(rng.integers(0, 3000, 96).astype(np.int32))
+    got = k_emit.rice_encode_words(x.to(cuda), cb.to(cuda), *RICE,
+                                   start.to(cuda), bit_size_cap=21,
+                                   num=num.to(cuda))
+    _same(got, rice.rice_encode_words(x, cb, *RICE, start, bit_size_cap=21,
+                                      num=num))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("predict_legacy", [False, True])
+def test_51_encode_on_card(cuda, predict_legacy):
+    """24-bit 5.1 with partial frames encodes on the card to the oracle's
+    packets, through the cost kernel or through the standalone predictor
+    and the Rice cost kernel (then the cost kernel never launches)."""
+    from alacjax.oracle import ALACEncoder
+    cfg = AlacConfig(bit_depth=24, num_channels=6, frame_length=256)
+    rng = np.random.default_rng(52)
+    t = np.arange(256)
+    pcm = np.stack([(np.round(np.sin(t * (0.01 + 0.002 * b) + np.arange(6)
+                                     [:, None]) * 3e6).astype(np.int64))
+                    + rng.integers(-300, 300, (6, 256)) for b in range(12)])
+    pcm[4] = rng.integers(-(1 << 23), 1 << 23, (6, 256))    # escapes
+    nums = np.full(12, 256)
+    nums[[2, 7]] = (1, 100)
+    for b, n in enumerate(nums):
+        pcm[b, :, n:] = 0
+    codec = TorchCodec(cfg, chunk=12, device="cuda",
+                       predict_legacy=predict_legacy)
+    kernels.reset_launches()
+    packets = codec.encode_frames_ex(pcm, nums)
+    used = [k for k, v in kernels.LAUNCHES.items() if v]
+    assert used == (["emit", "merge", "predict", "rice_cost"] if predict_legacy
+                    else ["cost", "emit", "merge"]), kernels.LAUNCHES
+    enc = ALACEncoder(cfg, independent_frames=True)
+    assert packets == [enc.encode_packet(f[:, :n]) for f, n in zip(pcm, nums)]
