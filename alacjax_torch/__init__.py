@@ -11,7 +11,7 @@ ported yet.  Every scan runs in a hand-written CUDA kernel for Hopper
 never jax; alacjax/ stays the reference it is held to, bit for bit.
 """
 
-from alacjax.types import AlacConfig
+from .types import AlacConfig
 
 from .codec import TorchCodec, get_codec
 

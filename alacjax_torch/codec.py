@@ -10,8 +10,9 @@ Encode dataflow (alacjax.codec._encode_packet_chunks, general branch):
 per-element shift-off -> stereo mode of every CPE (one dilated trial, 7
 candidate streams per CPE, order 8, one cost machine; fast mode takes a
 constant) -> mix -> one (order x stage) search over every channel of
-every element (one call per order; exhaustive mode searches all five
-mixes of each CPE and picks per element) -> closed-form element starts
+every element (one cost launch for every order; exhaustive mode
+searches all five mixes of each CPE and picks per element) ->
+closed-form element starts
 and per-element escape sizing -> headers as tiny token images, the
 shift-byte blocks as placed field packs -> one Rice emission over every
 channel (per-lane chanbits and sample count) -> per-element escape
@@ -39,12 +40,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from alacjax.oracle import ALACDecoder as OracleDecoder
-from alacjax.oracle.encoder import (
+from .oracle import ALACDecoder as OracleDecoder
+from .oracle.encoder import (
     DEFAULT_MIX_BITS, FAST_MIX_RES, FAST_ORDER, MAX_RES, MIXRES_DILATE,
     PB_FACTOR, SEARCH_ORDERS, SEARCH_STAGES, bytes_shifted_for_depth,
 )
-from alacjax.types import (
+from .types import (
     DENSHIFT_DEFAULT, AlacConfig, AlacParamError, kALACMaxCoefs,
 )
 
@@ -136,26 +137,33 @@ def _tile_lanes(nums, n: int):
     return None if nums is None else nums.to(I32).repeat(n).contiguous()
 
 
-def _price(xs, c0s, order: int, chanbits, num, config, dual: bool,
+def _price(xs, c0s, orders, chanbits, num, config, dual: bool,
            predict_legacy: bool):
-    """Residuals and Rice costs of stacked streams at one static order:
-    (res (L, S), cost1 (L,), cost2 (L,) or None).  The default route is
-    the fused cost kernel.  ``predict_legacy`` is the standalone-
-    predictor route (alacjax/ops/predict.py:328-332 and :375-381): the
-    predictor kernel, then the Rice cost of its residuals and, for
-    stage 2, of their first difference; the cost kernel is not
+    """Residuals and Rice costs of stacked streams at each static order
+    of ``orders``: (res (n, L, S), cost1 (n, L), cost2 (n, L) or None),
+    one row per order.  The default route is ONE launch of the fused
+    cost kernel for every order.  ``predict_legacy`` is the standalone-
+    predictor route (alacjax/ops/predict.py:328-332 and :375-381): per
+    order the predictor kernel, then the Rice cost of its residuals and,
+    for stage 2, of their first difference; the cost kernel is not
     launched."""
     mb0, pb, kb, wb = _rice_params_static(config)
     if predict_legacy:
-        res, _ = k_predict.pc_block(xs, c0s, order, chanbits,
-                                    DENSHIFT_DEFAULT)
-        c1 = k_predict.rice_cost(res, chanbits, mb0, pb, kb, wb, num=num)
-        c2 = (k_predict.rice_cost(predict.wrap_diff(res, chanbits),
-                                  chanbits, mb0, pb, kb, wb, num=num)
-              if dual else None)
-        return res, c1, c2
+        res, c1, c2 = [], [], []
+        for od in orders:
+            r, _ = k_predict.pc_block(xs, c0s, od, chanbits,
+                                      DENSHIFT_DEFAULT)
+            res.append(r)
+            c1.append(k_predict.rice_cost(r, chanbits, mb0, pb, kb, wb,
+                                          num=num))
+            if dual:
+                c2.append(k_predict.rice_cost(
+                    predict.wrap_diff(r, chanbits), chanbits, mb0, pb, kb,
+                    wb, num=num))
+        return (torch.stack(res), torch.stack(c1),
+                torch.stack(c2) if dual else None)
     res, c1, c2, _ = k_cost.pc_block_cost2(
-        xs, c0s, order, chanbits, DENSHIFT_DEFAULT, mb0, pb, kb, wb,
+        xs, c0s, orders, chanbits, DENSHIFT_DEFAULT, mb0, pb, kb, wb,
         dual=dual, num=num)
     return res, c1, c2 if dual else None
 
@@ -182,9 +190,9 @@ def _mixres_select(cpe_pairs, chanbits: int, config, nums=None,
     nd = (None if nums is None
           else _tile_lanes((nums + MIXRES_DILATE - 1) // MIXRES_DILATE,
                            len(cand)))
-    _, c, _ = _price(st, init_coefs_batched(st.shape[0], dev), FAST_ORDER,
+    _, c, _ = _price(st, init_coefs_batched(st.shape[0], dev), (FAST_ORDER,),
                      chanbits, nd, config, False, predict_legacy)
-    ce = c.to(I64).reshape(len(cpe_pairs), n_cand, B)
+    ce = c[0].to(I64).reshape(len(cpe_pairs), n_cand, B)
     return [torch.argmin(torch.stack(
         [ce[e, 0] + ce[e, 1]]
         + [ce[e, 1 + mr] + ce[e, n_cand - 1] for mr in range(1, MAX_RES + 1)]),
@@ -194,8 +202,8 @@ def _mixres_select(cpe_pairs, chanbits: int, config, nums=None,
 def _search_channels(streams, chanbits_list, config, nums=None,
                      predict_legacy: bool = False):
     """Per-channel (order x stage) candidate search over every stacked
-    stream: one call per order (the TPU path's split), per-lane chanbits
-    when SCE and CPE channels mix.  Candidates (4,1),(4,2),(8,1),(8,2),
+    stream: one pricing call for every order, per-lane chanbits when SCE
+    and CPE channels mix.  Candidates (4,1),(4,2),(8,1),(8,2),
     first minimum wins; fast mode prices order 8, stage 1 only.  Returns
     per-stream lists (res, order, mode, rice_bits); every stream starts
     from the fresh coefficients."""
@@ -209,9 +217,10 @@ def _search_channels(streams, chanbits_list, config, nums=None,
     c0s = init_coefs_batched(W * B, dev)
     cb_all = _lane_chanbits(chanbits_list, B, dev)
     num_all = _tile_lanes(nums, W)
-    by_order = {od: _price(xs, c0s, od, cb_all, num_all, config,
-                           len(stages) > 1, predict_legacy)
-                for od in orders}
+    res_o, c1_o, c2_o = _price(xs, c0s, tuple(orders), cb_all, num_all,
+                               config, len(stages) > 1, predict_legacy)
+    by_order = {od: (res_o[i], c1_o[i], None if c2_o is None else c2_o[i])
+                for i, od in enumerate(orders)}
     res_l, order_l, mode_l, rice_l = [], [], [], []
     for ci in range(W):
         sl = slice(ci * B, (ci + 1) * B)
@@ -929,17 +938,26 @@ def decode_frames_device(words, config: AlacConfig, num_samples: int,
 # ---------------------------------------------------------------------------
 class TorchCodec:
     """Batched codec for one AlacConfig on one torch device: encode and
-    decode whole chunks of frames per call.  ``predict_legacy`` runs the
-    encoder's trial and search through the standalone predictor kernel
-    and the Rice cost kernel instead of the fused cost kernel (alacjax's
+    decode whole chunks of frames per call.  The work runs on the card
+    (``device="cuda"``, the default) through the CUDA kernels; a caller
+    that wants the plain torch versions on the host passes
+    ``device="cpu"``.  Without a card the default raises: the codec never
+    moves to the CPU by itself.  ``predict_legacy`` runs the encoder's
+    trial and search through the standalone predictor kernel and the
+    Rice cost kernel instead of the fused cost kernel (alacjax's
     ALACJAX_PALLAS_PREDICT_LEGACY=1): the same packets."""
 
     def __init__(self, config: AlacConfig, chunk: int = DEFAULT_CHUNK,
-                 device="cpu", predict_legacy: bool = False):
+                 device="cuda", predict_legacy: bool = False):
         check_encode_config(config)
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"TorchCodec: device {str(self.device)!r} requested, but no "
+                "CUDA device is available (torch.cuda.is_available() is "
+                "false); pass device=\"cpu\" to run the plain torch versions")
         self.config = config
         self.chunk = chunk
-        self.device = torch.device(device)
         self.predict_legacy = predict_legacy
         S = config.frame_length
         self.num_words = (config.max_escape_packet_bytes(S) + 3) // 4 + 2
@@ -1049,7 +1067,7 @@ _CODEC_CACHE: dict[tuple, TorchCodec] = {}
 
 
 def get_codec(config: AlacConfig, chunk: int = DEFAULT_CHUNK,
-              device="cpu", predict_legacy: bool = False) -> TorchCodec:
+              device="cuda", predict_legacy: bool = False) -> TorchCodec:
     """Shared-cache codec lookup by (config, chunk, device,
     predict_legacy)."""
     key = (config, chunk, str(torch.device(device)), predict_legacy)

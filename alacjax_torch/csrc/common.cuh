@@ -38,6 +38,18 @@ __device__ __forceinline__ int sext(int x, int bits) {
 
 __device__ __forceinline__ int sign_of(int x) { return (x > 0) - (x < 0); }
 
+// c ? a : b, opaque to the compiler.  A chain of plain selects over an
+// array's constant indices (or over two fields of the kernel's argument
+// struct) may be folded into one dynamically indexed load, which moves
+// the array (or the struct) to local memory; an asm select cannot be.
+__device__ __forceinline__ int select_opaque(bool c, int a, int b) {
+    int r;
+    asm("{\n\t.reg .pred p;\n\tsetp.ne.s32 p, %3, 0;\n\t"
+        "selp.b32 %0, %1, %2, p;\n\t}"
+        : "=r"(r) : "r"(a), "r"(b), "r"((int)c));
+    return r;
+}
+
 // leading zeros of a u32; clz32(0) == 32 (the _clz32 contract)
 __device__ __forceinline__ int clz32(unsigned x) { return __clz((int)x); }
 

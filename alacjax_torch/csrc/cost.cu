@@ -1,60 +1,86 @@
 // Fused adaptive-FIR prediction + adaptive-Rice cost: the encoder's
-// search scan.
+// search scan, every order of a search in one launch.
 //
 // Replaces: alacjax/ops/pallas/cost_pallas.py :: _kernel (pallas_call in
 // _cost2_pallas_call, entered through pc_block_cost2_pallas).  Plain
-// version: alacjax_torch/ops/predict.py.
+// version: alacjax_torch/kernels/cost.py :: plain (alacjax_torch/ops/
+// predict.py once per order).
 //
-// Bound: each lane is a serial recurrence over S samples (the predictor
-// walk and both Rice machines depend on the previous sample), so the
-// kernel is bound by the latency of that dependency chain, not by
-// memory (8 bytes per sample per lane) or arithmetic throughput.
+// Bound: each lane is a serial recurrence over S samples.  The walk's
+// coefficients depend on the previous sample's residual (FIR sum ->
+// residual -> the sign-sign walk through del0 -> coefficients), and each
+// Rice machine's mean on its previous codeword, so one lane's chain, not
+// memory (8 bytes per sample) or arithmetic throughput, bounds it.  The
+// lanes (one per channel, frame and order: 16,384 at B=4096 stereo) are
+// the only parallelism, a few warps per SM.
 //
-// Design: one thread per lane with the whole S loop inside; the lags,
-// coefficients and both Rice states live in registers; the order (4 or
-// 8) is a template parameter so the FIR and adaptation loops unroll and
-// the lag rotation is register renaming.  chanbits is a per-lane vector
-// (one launch holds SCE and CPE channels of any depth, the TPU kernel's
-// cb row) and so is the sample count num (partial frames, the num row):
-// the Rice machines stop at the lane's num, the walk runs all S.  Input
-// and residuals are laid out (S, L), so a warp's loads and stores at
-// step t coalesce.  Small blocks (32 threads) spread the few thousand
-// lanes over many SMs.
+// Design:
+//   - one launch for every order of a search: a block of 32 lanes runs
+//     each order's warps over the same x;
+//   - (L, S) in and out through shared-memory tiles: the block stages
+//     TILE-sample tiles of x with cp.async, double-buffered, so the next
+//     tile is in flight while this one is walked; every order's walker
+//     reads the same tile (x is read once for every order); residuals go
+//     to a shared tile and back to (L, S) with coalesced row stores.
+//     Tiles are [sample][lane] with a pitch of 33 words, so the per-lane
+//     walk and the per-row copies are both free of bank conflicts;
+//   - warp specialisation: per order a walker warp (FIR prediction and
+//     the sign-sign adaptation) fills a residual tile, and one Rice warp
+//     per cost machine prices the walker's previous tile; the machines
+//     depend on the residuals alone.  Phases end at a named barrier, so
+//     the per-sample chain is the walk alone, with 3 x n_orders warps
+//     per block (dual) or 2 x n_orders.
+// PERF.md §6 records what each of the three steps bought on an H100.
+// The order (4 or 8) is a template parameter of each warp's code, so the
+// FIR and the walk unroll and the lag rotation is register renaming;
+// chanbits and the Rice machines' sample count num are per lane.
 #include "common.cuh"
 
 namespace alac {
 
-template <int NA, bool DUAL>
-__global__ void cost_kernel(const int* __restrict__ xt,
-                            const int* __restrict__ coefs0,
-                            const int* __restrict__ cb,
-                            const int* __restrict__ num,
-                            int* __restrict__ res_t, int* __restrict__ cost1,
-                            int* __restrict__ cost2,
-                            int* __restrict__ coefs_out, int L, int S,
-                            int denshift, unsigned mb0, unsigned pb, int kb,
-                            unsigned wb) {
-    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-    if (lane >= L) return;
-    const int chanbits = cb[lane];
-    const int n = num ? num[lane] : S;     // the Rice machines' sample count
-    const int den = denshift < 1 ? 1 : denshift;
-    const int denhalf = 1 << (den - 1);
+constexpr int MAX_ORDERS = 2;
+constexpr int TILE = 32;              // samples per staged tile
+constexpr int LANES = 32;             // lanes per block
+constexpr int PITCH = LANES + 1;      // shared tile row pitch, in words
 
+struct CostArgs {
+    const int* x;          // (L, S)
+    const int* coefs0;     // (L, 16)
+    const int* cb;         // (L,) chanbits
+    const int* num;        // (L,) or nullptr (S on every lane)
+    int* res;              // (n_orders, L, S)
+    int* cost1;            // (n_orders, L)
+    int* cost2;            // (n_orders, L), written when dual
+    int* coefs_out;        // (n_orders, L, 16)
+    int L, S, denshift;
+    unsigned mb0, pb;
+    int kb;
+    unsigned wb;
+    int n_orders;
+    int orders[MAX_ORDERS];
+};
+
+// The predictor walk of one lane (dp_enc.c :: pc_block, encode branch):
+// lags hold the last NA+1 inputs, coefs adapt by sign-sign steps.
+template <int NA>
+struct Walker {
     int lags[NA + 1];
     int coefs[NA];
-#pragma unroll
-    for (int i = 0; i <= NA; ++i) lags[i] = 0;
-#pragma unroll
-    for (int k = 0; k < NA; ++k) coefs[k] = coefs0[(size_t)lane * 16 + k];
+    int den, denhalf, chanbits;
 
-    RiceState r1 = rice_init(mb0), r2 = rice_init(mb0);
-    int tot1 = 0, tot2 = 0, prev_out = 0;
-    unsigned rv, vv;
-    int rb, vl;
+    __device__ __forceinline__ void init(const int* c0, int denshift,
+                                         int cb) {
+#pragma unroll
+        for (int i = 0; i <= NA; ++i) lags[i] = 0;
+#pragma unroll
+        for (int k = 0; k < NA; ++k) coefs[k] = c0[k];
+        den = denshift < 1 ? 1 : denshift;
+        denhalf = 1 << (den - 1);
+        chanbits = cb;
+    }
 
-    for (int t = 0; t < S; ++t) {
-        const int x_t = xt[(size_t)t * L + lane];
+    // sample t -> its residual
+    __device__ __forceinline__ int step(int x_t, int t) {
         const int top = lags[NA];
         const bool in_warm = t <= NA;
         int sum1 = denhalf;
@@ -69,7 +95,6 @@ __global__ void cost_kernel(const int* __restrict__ xt,
             out = sext(wsub(x_t, lags[0]), chanbits);
         else
             out = sext(wsub(wsub(x_t, top), pred_adj), chanbits);
-        res_t[(size_t)t * L + lane] = out;
 
         // sign-sign adaptation; the walk stops acting at the first tap
         // whose step flips the error's side (dp_enc.c early exit)
@@ -90,64 +115,210 @@ __global__ void cost_kernel(const int* __restrict__ xt,
 #pragma unroll
         for (int i = NA; i > 0; --i) lags[i] = lags[i - 1];
         lags[0] = x_t;
+        return out;
+    }
 
-        tot1 += rice_step(r1, out, t, n, chanbits, pb, kb, wb, rv, rb, vv, vl);
-        if (DUAL) {
-            const int d = t == 0 ? out : sext(wsub(out, prev_out), chanbits);
-            tot2 += rice_step(r2, d, t, n, chanbits, pb, kb, wb, rv, rb, vv, vl);
-            prev_out = out;
-        }
-    }
-    // virtual end step (t == S): flush a pending zero-run token (a lane
-    // with num < S flushed at t == num and emits nothing here)
-    tot1 += rice_step(r1, 1, S, n, chanbits, pb, kb, wb, rv, rb, vv, vl);
-    cost1[lane] = tot1;
-    if (DUAL) {
-        tot2 += rice_step(r2, 1, S, n, chanbits, pb, kb, wb, rv, rb, vv, vl);
-        cost2[lane] = tot2;
-    }
     // columns >= NA never adapt: they leave as they came in
+    __device__ __forceinline__ void store(int* out, const int* c0) const {
 #pragma unroll
-    for (int k = 0; k < NA; ++k) coefs_out[(size_t)lane * 16 + k] = coefs[k];
-    for (int k = NA; k < 16; ++k)
-        coefs_out[(size_t)lane * 16 + k] = coefs0[(size_t)lane * 16 + k];
+        for (int k = 0; k < NA; ++k) out[k] = coefs[k];
+        for (int k = NA; k < 16; ++k) out[k] = c0[k];
+    }
+};
+
+// One adaptive-Rice cost machine: the mode-0 residuals (DIFF false) or
+// their first difference (DIFF true).
+template <bool DIFF>
+struct Pricer {
+    RiceState st;
+    int tot, prev, n, chanbits;
+    unsigned pb, wb;
+    int kb;
+
+    __device__ __forceinline__ void init(const CostArgs& a, int n_lane,
+                                         int cb) {
+        st = rice_init(a.mb0);
+        tot = 0;
+        prev = 0;
+        n = n_lane;
+        chanbits = cb;
+        pb = a.pb;
+        kb = a.kb;
+        wb = a.wb;
+    }
+
+    __device__ __forceinline__ void step(int out, int t) {
+        unsigned rv, vv;
+        int rb, vl;
+        int v = out;
+        if (DIFF) {
+            v = t == 0 ? out : sext(wsub(out, prev), chanbits);
+            prev = out;
+        }
+        tot += rice_step(st, v, t, n, chanbits, pb, kb, wb, rv, rb, vv, vl);
+    }
+
+    // the virtual end step (t == S) flushes a pending zero-run token (a
+    // lane with num < S flushed at t == num and emits nothing here)
+    __device__ __forceinline__ int finish(int S) {
+        unsigned rv, vv;
+        int rb, vl;
+        return tot + rice_step(st, 1, S, n, chanbits, pb, kb, wb, rv, rb, vv,
+                               vl);
+    }
+};
+
+// ---------------------------------------------------------------------------
+// (L, S) through shared-memory tiles, a walker warp and a warp per machine
+// ---------------------------------------------------------------------------
+struct Tiles {
+    int x[2][TILE][PITCH];                  // staged input, double-buffered
+    int r[MAX_ORDERS][2][TILE][PITCH];      // residual tiles per order
+};
+
+__device__ __forceinline__ void cp_async4(int* dst, const int* src) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src));
 }
 
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// every thread of the block: the phase's end
+__device__ __forceinline__ void phase_barrier(int nthreads) {
+    asm volatile("bar.sync 1, %0;\n" ::"r"(nthreads) : "memory");
+}
+
+// The block's threads copy tile `tile` of its lanes' x into buf: each
+// warp instruction moves 32 consecutive samples of one row (128 bytes).
+__device__ __forceinline__ void load_tile(int (*buf)[PITCH],
+                                          const CostArgs& a, int lane0,
+                                          int tile, int tid, int nthreads) {
+    const int t0 = tile * TILE;
+    for (int i = tid; i < LANES * TILE; i += nthreads) {
+        const int r = i / TILE, j = i % TILE;
+        const int lane = lane0 + r, t = t0 + j;
+        if (lane < a.L && t < a.S)
+            cp_async4(&buf[j][r], a.x + (size_t)lane * a.S + t);
+        else
+            buf[j][r] = 0;
+    }
+    cp_async_commit();
+}
+
+// One warp writes a residual tile back to (L, S): row by row, 32
+// consecutive samples per store instruction.
+__device__ __forceinline__ void store_tile(const int (*buf)[PITCH],
+                                           const CostArgs& a, int o,
+                                           int lane0, int tile, int lid) {
+    const int t = tile * TILE + lid;
+    if (t >= a.S) return;
+    int* base = a.res + (size_t)o * a.L * a.S + t;
+    for (int r = 0; r < LANES && lane0 + r < a.L; ++r)
+        base[(size_t)(lane0 + r) * a.S] = buf[lid][r];
+}
+
+// A warp's whole life: `role` 0 walks tile p in phase p, role 1 + m runs
+// cost machine m over tile p - 1 (so every warp runs one phase more than
+// there are tiles); machine 0's warp also stores the residual tile.
 template <int NA, bool DUAL>
-static void launch(const int* xt, const int* coefs0, const int* cb,
-                   const int* num, int* res_t, int* cost1, int* cost2,
-                   int* coefs_out, int L, int S, int denshift, unsigned mb0,
-                   unsigned pb, int kb, unsigned wb, cudaStream_t stream) {
-    const int threads = 32;
-    const int blocks = (L + threads - 1) / threads;
-    cost_kernel<NA, DUAL><<<blocks, threads, 0, stream>>>(
-        xt, coefs0, cb, num, res_t, cost1, cost2, coefs_out, L, S, denshift,
-        mb0, pb, kb, wb);
+__device__ void tiled_warp(Tiles& sm, const CostArgs& a, int o, int role) {
+    const int tid = threadIdx.x, nthreads = blockDim.x;
+    const int lid = tid & 31;
+    const int lane0 = blockIdx.x * LANES;
+    const int lane = lane0 + lid;
+    const bool live = lane < a.L;
+    const int S = a.S;
+    const int n_tiles = (S + TILE - 1) / TILE;
+    const int* c0 = a.coefs0 + (size_t)(live ? lane : 0) * 16;
+    const int cb = live ? a.cb[lane] : 16;
+    const int n = live && a.num ? a.num[lane] : S;
+
+    Walker<NA> w;
+    Pricer<false> p1;
+    Pricer<true> p2;
+    w.init(c0, a.denshift, cb);
+    p1.init(a, n, cb);
+    p2.init(a, n, cb);
+
+    for (int p = 0; p <= n_tiles; ++p) {
+        if (p + 1 < n_tiles)
+            load_tile(sm.x[(p + 1) & 1], a, lane0, p + 1, tid, nthreads);
+        if (role == 0 && p < n_tiles) {
+            const int (*xs)[PITCH] = sm.x[p & 1];
+            int (*rs)[PITCH] = sm.r[o][p & 1];
+            const int t0 = p * TILE;
+            const int cnt = min(TILE, S - t0);
+            for (int j = 0; j < cnt; ++j) rs[j][lid] = w.step(xs[j][lid], t0 + j);
+        }
+        if (role > 0 && p > 0) {
+            const int (*rs)[PITCH] = sm.r[o][(p - 1) & 1];
+            const int t0 = (p - 1) * TILE;
+            const int cnt = min(TILE, S - t0);
+            if (role == 1) {
+                for (int j = 0; j < cnt; ++j) p1.step(rs[j][lid], t0 + j);
+                store_tile(rs, a, o, lane0, p - 1, lid);
+            } else {
+                for (int j = 0; j < cnt; ++j) p2.step(rs[j][lid], t0 + j);
+            }
+        }
+        cp_async_wait_all();
+        phase_barrier(nthreads);
+    }
+    if (!live) return;
+    const size_t ol = (size_t)o * a.L + lane;
+    if (role == 0) w.store(a.coefs_out + ol * 16, c0);
+    if (role == 1) a.cost1[ol] = p1.finish(S);
+    if (DUAL && role == 2) a.cost2[ol] = p2.finish(S);
+}
+
+template <bool DUAL>
+__global__ void cost_tiled(const CostArgs a) {
+    __shared__ Tiles sm;
+    const int warp = threadIdx.x >> 5;
+    const int per_order = DUAL ? 3 : 2;
+    const int o = warp / per_order, role = warp % per_order;
+    load_tile(sm.x[0], a, blockIdx.x * LANES, 0, threadIdx.x, blockDim.x);
+    cp_async_wait_all();
+    phase_barrier(blockDim.x);
+    if (select_opaque(o == 0, a.orders[0], a.orders[1]) == 4)
+        tiled_warp<4, DUAL>(sm, a, o, role);
+    else
+        tiled_warp<8, DUAL>(sm, a, o, role);
 }
 
 }  // namespace alac
 
-// cb: (L,) per-lane chanbits; num: (L,) per-lane sample counts, or
-// nullptr for S on every lane.
-extern "C" int alac_cost(const int* xt, const int* coefs0, const int* cb,
-                         const int* num, int* res_t, int* cost1, int* cost2,
-                         int* coefs_out, int L, int S, int order, int dual,
-                         int denshift, unsigned mb0, unsigned pb, int kb,
-                         unsigned wb, void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    if (L <= 0) return (int)cudaGetLastError();
-#define ALAC_COST_ARGS xt, coefs0, cb, num, res_t, cost1, cost2, coefs_out, \
-        L, S, denshift, mb0, pb, kb, wb, s
-    if (order == 4 && dual)
-        alac::launch<4, true>(ALAC_COST_ARGS);
-    else if (order == 4)
-        alac::launch<4, false>(ALAC_COST_ARGS);
-    else if (order == 8 && dual)
-        alac::launch<8, true>(ALAC_COST_ARGS);
-    else if (order == 8)
-        alac::launch<8, false>(ALAC_COST_ARGS);
-    else
+// x: (L, S) int32; orders: n_orders (1 or 2) values, each 4 or 8; cb:
+// (L,) chanbits; num: (L,) sample counts, or nullptr for S on every lane.
+// Outputs per order: res (L, S), cost1 and cost2 (L,), coefs_out (L, 16).
+extern "C" int alac_cost(const int* x, const int* coefs0, const int* cb,
+                         const int* num, int* res, int* cost1, int* cost2,
+                         int* coefs_out, int L, int S, int order0,
+                         int order1, int n_orders, int dual, int denshift,
+                         unsigned mb0, unsigned pb, int kb, unsigned wb,
+                         void* stream) {
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (L <= 0 || S <= 0) return (int)cudaGetLastError();
+    if (n_orders < 1 || n_orders > alac::MAX_ORDERS)
         return (int)cudaErrorInvalidValue;
-#undef ALAC_COST_ARGS
+    alac::CostArgs a{x,  coefs0,   cb,  num, res, cost1, cost2, coefs_out,
+                     L,  S,        denshift, mb0, pb,    kb,    wb,
+                     n_orders, {order0, order1}};
+    for (int i = 0; i < n_orders; ++i)
+        if (a.orders[i] != 4 && a.orders[i] != 8)
+            return (int)cudaErrorInvalidValue;
+    const int blocks = (L + alac::LANES - 1) / alac::LANES;
+    const int threads = 32 * (dual ? 3 : 2) * n_orders;
+    if (dual)
+        alac::cost_tiled<true><<<blocks, threads, 0, s>>>(a);
+    else
+        alac::cost_tiled<false><<<blocks, threads, 0, s>>>(a);
     return (int)cudaGetLastError();
 }

@@ -19,39 +19,51 @@
 // costs TAPS multiply-adds and TAPS adaptation steps per sample whatever
 // the lane's order, so the 30-tap instance does about 4x the 8-tap work.
 //
-// Design: one thread per lane runs all S substeps with the Rice state,
-// the TAPS+1 lags and the TAPS coefficients in registers, walked by fully
-// unrolled predicate chains (every array index is a compile-time
-// constant, so nothing goes to local memory unless ptxas spills).  On the
-// TPU a lane's bits arrive through a row-prefetched sliding cache with a
-// drift budget; here a thread reads its own words directly through the
-// read-only cache, by an index clamped to the image, so there is no
-// refill, no cache shift and no underrun flag.  chanbits is per lane (a
-// stacked batch may mix SCE and CPE channels of several depths).  Samples
-// are written (S, B) so a warp's stores coalesce; end bits and the error
-// flag (zero-run overrun, or an order the walk does not cover) come out
-// per lane.
+// Design.  Per 32 lanes, a Rice warp decodes tile p's residuals (TILE
+// samples of each lane) into a shared ring while an FIR warp walks tile
+// p - 1; a named barrier ends each phase, so the bit cursor's chain and
+// the walk overlap.  Each thread keeps its lane's state in registers: the
+// Rice warp the cursor and the adaptive mean, the FIR warp the TAPS+1
+// lags and the TAPS coefficients, walked by fully unrolled predicate
+// chains (every array index is a compile-time constant).  On the TPU a
+// lane's bits arrive through a row-prefetched sliding cache with a drift
+// budget; here the Rice thread reads its row's words directly (two __ldg
+// per cut, indices clamped to the image: past W-1 reads word W-1, below 0
+// word 0), which a warp's rows mostly find in L1.  The FIR warp fills a
+// 32-lane x 32-sample shared tile (pitch 33: no bank conflicts either
+// way) and stores it to (B, S) row by row, 128 coalesced bytes per store.
+// PERF.md §6 records the steps measured on the way, among them a bit
+// reservoir in registers that was slower than the direct reads.
+// chanbits is per lane (a stacked batch may mix SCE and CPE channels of
+// several depths).  End bits and the error flag (zero-run overrun, or an
+// order the walk does not cover) come out per lane.
 #include "common.cuh"
 
 namespace alac {
 
 constexpr int MAX_TAPS = 30;
+constexpr int TILE = 32;            // samples per output / ring tile
+constexpr int PITCH = TILE + 1;     // shared tile row pitch, in words
 
-__device__ __forceinline__ unsigned read32(const unsigned* __restrict__ row,
-                                           int W, int bitpos) {
-    const int w = bitpos >> 5, sh = bitpos & 31;
-    const int i0 = w < 0 ? 0 : (w > W - 1 ? W - 1 : w);
-    const unsigned a = __ldg(row + i0);
-    if (sh == 0) return a;
-    const int i1 = w + 1 < 0 ? 0 : (w + 1 > W - 1 ? W - 1 : w + 1);
-    return (a << sh) | (__ldg(row + i1) >> (32 - sh));
-}
-
-__device__ __forceinline__ unsigned read_bits(const unsigned* __restrict__ row,
-                                              int W, int bitpos, int nbits) {
-    const unsigned mask = nbits >= 32 ? 0xFFFFFFFFu : ((1u << nbits) - 1u);
-    return (read32(row, W, bitpos) >> ((32 - nbits) & 31)) & mask;
-}
+struct DecodeArgs {
+    const unsigned* words;          // (B, W)
+    const int* start_bits;          // (B,)
+    const int* chanbits;            // (B,)
+    const int* pb;                  // (B,)
+    const int* coefs0;              // (B, coef_n)
+    int coef_n;
+    const int* mode;                // (B,)
+    const int* numactive;           // (B,)
+    const int* denshift;            // (B,)
+    const int* num;                 // (B,) or nullptr (S on every lane)
+    int* samples;                   // (B, S)
+    int* end_bits;                  // (B,)
+    int* err;                       // (B,)
+    int B, W, S;
+    unsigned mb0;
+    int kb;
+    unsigned wb;
+};
 
 // leading-ones prefix length of the window and the k bits after its
 // terminating zero
@@ -62,70 +74,78 @@ __device__ __forceinline__ void codeword(unsigned stream, int k, int& pre,
     v = body >> ((32 - k) & 31);
 }
 
-template <int TAPS>
-__global__ void decode_kernel(const unsigned* __restrict__ words,
-                              const int* __restrict__ start_bits,
-                              const int* __restrict__ chanbits,
-                              const int* __restrict__ pb_lane,
-                              const int* __restrict__ coefs0, int coef_n,
-                              const int* __restrict__ mode,
-                              const int* __restrict__ numactive,
-                              const int* __restrict__ denshift,
-                              const int* __restrict__ num,
-                              int* __restrict__ samples_t,
-                              int* __restrict__ end_bits,
-                              int* __restrict__ err_out, int B, int W, int S,
-                              unsigned mb0, int kb, unsigned wb) {
-    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-    if (lane >= B) return;
-    const unsigned* row = words + (size_t)lane * W;
-    const int cb = chanbits[lane];
-    const int n_eff = num ? num[lane] : S;
-    const unsigned pb = (unsigned)pb_lane[lane];
-    const int na = numactive[lane];
-    int na_k = na < 1 ? 1 : (na > MAX_TAPS ? MAX_TAPS : na);
-    if (na_k > TAPS) na_k = TAPS;
-    const int den = denshift[lane] < 1 ? 1 : denshift[lane];
-    const int denhalf = 1 << (den - 1);
-    const bool mode_nz = mode[lane] != 0;
-    const bool is0 = na == 0, is31 = na == 31;
+// A lane's bit cursor over its row: each cut reads the two words under
+// the cursor directly, by clamped indices.
+struct Bits {
+    const unsigned* row;
+    int W, bitpos;
 
-    int bitpos = start_bits[lane];
-    unsigned mb = mb0, zmode = 0u, run_rem = 0u;
-    int c = 0;
-    bool err = false;
-    int lags[TAPS + 1], coefs[TAPS];
-#pragma unroll
-    for (int i = 0; i <= TAPS; ++i) lags[i] = 0;
-#pragma unroll
-    for (int k = 0; k < TAPS; ++k)
-        coefs[k] = k < coef_n ? coefs0[(size_t)lane * coef_n + k] : 0;
-    int s1_acc = 0, acc31 = 0;
+    __device__ __forceinline__ void init(const unsigned* r, int w,
+                                         int start) {
+        row = r;
+        W = w;
+        bitpos = start;
+    }
 
-    for (int i = 0; i < S; ++i) {
-        // ---- Rice codeword or zero-run sample (_rice_substep) ----
+    __device__ __forceinline__ unsigned peek32() const {
+        const int w = bitpos >> 5, sh = bitpos & 31;
+        const int i0 = w < 0 ? 0 : (w > W - 1 ? W - 1 : w);
+        const unsigned a = __ldg(row + i0);
+        if (sh == 0) return a;
+        const int i1 = w + 1 < 0 ? 0 : (w + 1 > W - 1 ? W - 1 : w + 1);
+        return (a << sh) | (__ldg(row + i1) >> (32 - sh));
+    }
+
+    __device__ __forceinline__ unsigned peek(int nb) const {
+        return peek32() >> ((32 - nb) & 31) & (nb >= 32 ? ~0u : (1u << nb) - 1u);
+    }
+
+    __device__ __forceinline__ void skip(int k) { bitpos += k; }
+};
+
+// The adaptive-Rice side of a substep (_rice_substep): one residual per
+// call, 0 inside a zero run or past the lane's sample count.
+struct RiceDec {
+    Bits bits;
+    unsigned mb, zmode, run_rem, pb, wb;
+    int c, n_eff, cb, kb;
+    bool err;
+
+    __device__ __forceinline__ void init(const DecodeArgs& a, int lane,
+                                         int n) {
+        bits.init(a.words + (size_t)lane * a.W, a.W, a.start_bits[lane]);
+        mb = a.mb0;
+        zmode = 0u;
+        run_rem = 0u;
+        pb = (unsigned)a.pb[lane];
+        wb = a.wb;
+        c = 0;
+        n_eff = n;
+        cb = a.chanbits[lane];
+        kb = a.kb;
+        err = false;
+    }
+
+    __device__ __forceinline__ int next() {
         const bool active = c < n_eff;
-        const bool in_run = run_rem > 0u;
-        const bool decode_now = active && !in_run;
         int res = 0;
-        if (decode_now) {
+        if (active && run_rem == 0u) {
             int k = 31 - clz32((mb >> QBSHIFT) + 3u);
             if (k > kb) k = kb;
             const unsigned m = (1u << k) - 1u;
             int pre;
             unsigned v;
-            codeword(read32(row, W, bitpos), k, pre, v);
-            const bool esc = pre >= MAX_PREFIX_32;
-            const bool use_v = k != 1 && !esc;
-            const bool vge2 = v >= 2u;
+            codeword(bits.peek32(), k, pre, v);
             unsigned n;
-            int adv;
-            if (esc) {
-                n = read_bits(row, W, bitpos + MAX_PREFIX_32, cb);
-                adv = MAX_PREFIX_32 + cb;
+            if (pre >= MAX_PREFIX_32) {
+                bits.skip(MAX_PREFIX_32);
+                    n = bits.peek(cb);
+                bits.skip(cb);
             } else {
+                const bool use_v = k != 1;
+                const bool vge2 = v >= 2u;
                 n = (unsigned)pre * m + (use_v && vge2 ? v - 1u : 0u);
-                adv = pre + 1 + (use_v ? (vge2 ? k : k - 1) : 0);
+                bits.skip(pre + 1 + (use_v ? (vge2 ? k : k - 1) : 0));
             }
             const unsigned ndecode = n + zmode;
             const int half = (int)(ndecode >> 1);
@@ -135,26 +155,26 @@ __global__ void decode_kernel(const unsigned* __restrict__ words,
             if (n > N_MAX_MEAN_CLAMP) mb_upd = N_MEAN_CLAMP_VAL;
             const bool trigger =
                 ((mb_upd << MMULSHIFT) < QB) && (c + 1 < n_eff);
-            int adv2 = 0;
             unsigned nz_safe = 0u;
             bool overrun = false;
             if (trigger) {
                 const int kz = clz32(mb_upd) - 24 + (int)((mb_upd + 16u) >> 6);
                 const int kzc = kz < 0 ? 0 : (kz > 31 ? 31 : kz);
                 const unsigned mz = ((1u << kzc) - 1u) & wb;
-                const int pos2 = bitpos + adv;
-                int pre2;
+                    int pre2;
                 unsigned v2;
-                codeword(read32(row, W, pos2), kzc, pre2, v2);
-                const bool v2ge2 = v2 >= 2u;
+                codeword(bits.peek32(), kzc, pre2, v2);
                 unsigned nz;
                 if (pre2 >= MAX_PREFIX_16) {
-                    nz = read_bits(row, W, pos2 + MAX_PREFIX_16, 16);
-                    adv2 = MAX_PREFIX_16 + 16;
+                    bits.skip(MAX_PREFIX_16);
+                    nz = bits.peek(16);
+                    bits.skip(16);
                 } else {
+                    const bool v2ge2 = v2 >= 2u;
                     nz = (unsigned)pre2 * (mz == 0u ? 1u : mz)
                          + (kz != 1 && v2ge2 ? v2 - 1u : 0u);
-                    adv2 = pre2 + 1 + (kz != 1 ? (v2ge2 ? kz : kz - 1) : 0);
+                    bits.skip(pre2 + 1
+                              + (kz != 1 ? (v2ge2 ? kz : kz - 1) : 0));
                 }
                 overrun = (unsigned)(c + 1) + nz > (unsigned)n_eff;
                 err = err || overrun;
@@ -163,23 +183,57 @@ __global__ void decode_kernel(const unsigned* __restrict__ words,
             run_rem = trigger ? nz_safe : 0u;
             zmode = (trigger && nz_safe < 65535u && !overrun) ? 1u : 0u;
             mb = trigger ? 0u : mb_upd;
-            bitpos = bitpos + adv + (trigger ? adv2 : 0);
         } else if (active) {
             run_rem -= 1u;
         }
+        if (active) ++c;
+        return res;
+    }
+};
 
-        // ---- inverse predictor (_substep_core) ----
+// The inverse predictor of a substep (_substep_core): residual -> sample.
+template <int TAPS>
+struct Fir {
+    int lags[TAPS + 1], coefs[TAPS];
+    int cb, na_k, den, c, n_eff, s1_acc, acc31;
+    bool mode_nz, is0, is31;
+
+    __device__ __forceinline__ void init(const DecodeArgs& a, int lane,
+                                         int n) {
+        const int na = a.numactive[lane];
+        na_k = na < 1 ? 1 : (na > MAX_TAPS ? MAX_TAPS : na);
+        if (na_k > TAPS) na_k = TAPS;
+        den = a.denshift[lane] < 1 ? 1 : a.denshift[lane];
+        mode_nz = a.mode[lane] != 0;
+        is0 = na == 0;
+        is31 = na == 31;
+        cb = a.chanbits[lane];
+        c = 0;
+        n_eff = n;
+        s1_acc = 0;
+        acc31 = 0;
+#pragma unroll
+        for (int i = 0; i <= TAPS; ++i) lags[i] = 0;
+#pragma unroll
+        for (int k = 0; k < TAPS; ++k)
+            coefs[k] = k < a.coef_n ? a.coefs0[(size_t)lane * a.coef_n + k]
+                                    : 0;
+    }
+
+    __device__ __forceinline__ int step(int res) {
+        const bool active = c < n_eff;
         const int s1_acc2 = active ? wadd(s1_acc, res) : s1_acc;
         const int x_t = mode_nz ? sext(s1_acc2, cb) : res;
         int top = 0;
 #pragma unroll
         for (int j = 0; j <= TAPS; ++j)
-            if (na_k == j) top = lags[j];
+            top = select_opaque(na_k == j, lags[j], top);
         const bool in_warm = c <= na_k;
-        int sum1 = denhalf;
+        int sum1 = 1 << (den - 1);
 #pragma unroll
         for (int kk = 0; kk < TAPS; ++kk)
-            if (kk < na_k) sum1 = wadd(sum1, wmul(coefs[kk], wsub(lags[kk], top)));
+            if (kk < na_k)
+                sum1 = wadd(sum1, wmul(coefs[kk], wsub(lags[kk], top)));
         const int pred_adj = sum1 >> den;
         int out;
         if (c == 0)
@@ -213,8 +267,6 @@ __global__ void decode_kernel(const unsigned* __restrict__ words,
             out = x_t;
         else if (is31)
             out = sext(acc31_2, cb);
-        samples_t[(size_t)i * B + lane] = out;
-
         if (active) {
 #pragma unroll
             for (int j = TAPS; j > 0; --j) lags[j] = lags[j - 1];
@@ -223,22 +275,77 @@ __global__ void decode_kernel(const unsigned* __restrict__ words,
         }
         s1_acc = s1_acc2;
         acc31 = acc31_2;
+        return out;
     }
-    end_bits[lane] = bitpos;
-    err_out[lane] = (err || (na > TAPS && na != 31)) ? 1 : 0;
+};
+
+// both warps of the block: the phase's end
+__device__ __forceinline__ void phase_barrier(int nthreads) {
+    asm volatile("bar.sync 1, %0;\n" ::"r"(nthreads) : "memory");
+}
+
+// One warp stores a [lane][sample] tile of its 32 lanes to (B, S), row by
+// row: cnt consecutive samples of one lane per store instruction.
+__device__ __forceinline__ void store_rows(const int (*tile)[PITCH],
+                                           const DecodeArgs& a, int lane0,
+                                           int t0, int cnt, int lid) {
+    if (lid >= cnt) return;
+    int* base = a.samples + t0 + lid;
+    for (int r = 0; r < 32 && lane0 + r < a.B; ++r)
+        base[(size_t)(lane0 + r) * a.S] = tile[r][lid];
+}
+
+// Warp 0 of a block decodes its 32 lanes' residuals, warp 1 walks them.
+template <int TAPS>
+__global__ void decode_kernel(const DecodeArgs a) {
+    __shared__ int ring[2][TILE][PITCH];
+    __shared__ int otile[TILE][PITCH];
+    const int warp = threadIdx.x >> 5, lid = threadIdx.x & 31;
+    const int lane0 = blockIdx.x * 32, lane = lane0 + lid;
+    const bool live = lane < a.B;
+    const int ln = live ? lane : 0;         // a dead lane reads lane 0 ...
+    const int n_eff = !live ? 0 : (a.num ? a.num[ln] : a.S);  // ... never
+    const int S = a.S;
+    const int n_tiles = (S + TILE - 1) / TILE;
+    const int na = a.numactive[ln];
+    const bool bad_order = na > TAPS && na != 31;
+
+    if (warp == 0) {
+        // tile p's residuals in phase p
+        RiceDec r;
+        r.init(a, ln, n_eff);
+        for (int p = 0; p <= n_tiles; ++p) {
+            if (p < n_tiles) {
+                const int t0 = p * TILE, cnt = min(TILE, S - t0);
+                for (int j = 0; j < cnt; ++j) ring[p & 1][j][lid] = r.next();
+            }
+            phase_barrier(64);
+        }
+        if (live) {
+            a.end_bits[lane] = r.bits.bitpos;
+            a.err[lane] = (r.err || bad_order) ? 1 : 0;
+        }
+    } else {
+        // tile p - 1's samples in phase p
+        Fir<TAPS> f;
+        f.init(a, ln, n_eff);
+        for (int p = 0; p <= n_tiles; ++p) {
+            if (p > 0) {
+                const int t0 = (p - 1) * TILE, cnt = min(TILE, S - t0);
+                for (int j = 0; j < cnt; ++j)
+                    otile[lid][j] = f.step(ring[(p - 1) & 1][j][lid]);
+                __syncwarp();
+                store_rows(otile, a, lane0, t0, cnt, lid);
+                __syncwarp();
+            }
+            phase_barrier(64);
+        }
+    }
 }
 
 template <int TAPS>
-int launch(const int* words, const int* start_bits, const int* chanbits,
-           const int* pb, const int* coefs0, int coef_n, const int* mode,
-           const int* numactive, const int* denshift, const int* num,
-           int* samples_t, int* end_bits, int* err, int B, int W, int S,
-           unsigned mb0, int kb, unsigned wb, cudaStream_t stream) {
-    const int threads = 32;
-    decode_kernel<TAPS><<<(B + threads - 1) / threads, threads, 0, stream>>>(
-        (const unsigned*)words, start_bits, chanbits, pb, coefs0, coef_n,
-        mode, numactive, denshift, num, samples_t, end_bits, err, B, W, S,
-        mb0, kb, wb);
+int launch(const DecodeArgs& a, cudaStream_t st) {
+    decode_kernel<TAPS><<<(a.B + 31) / 32, 64, 0, st>>>(a);
     return (int)cudaGetLastError();
 }
 
@@ -250,22 +357,22 @@ extern "C" int alac_decode(const int* words, const int* start_bits,
                            const int* chanbits, const int* pb,
                            const int* coefs0, int coef_n, const int* mode,
                            const int* numactive, const int* denshift,
-                           const int* num, int* samples_t, int* end_bits,
+                           const int* num, int* samples, int* end_bits,
                            int* err, int B, int W, int S, int taps,
                            int chanbits_max, unsigned mb0, int kb,
                            unsigned wb, void* stream) {
-    if (B <= 0) return (int)cudaGetLastError();
+    if (B <= 0 || S <= 0) return (int)cudaGetLastError();
     if (W <= 0 || coef_n < 0 || chanbits_max < 1 || chanbits_max > 32)
         return (int)cudaErrorInvalidValue;
+    const alac::DecodeArgs a{(const unsigned*)words, start_bits, chanbits,
+                             pb, coefs0, coef_n, mode, numactive, denshift,
+                             num, samples, end_bits, err, B, W, S, mb0, kb,
+                             wb};
     const cudaStream_t st = (cudaStream_t)stream;
-#define ALAC_DECODE_ARGS                                                    \
-    words, start_bits, chanbits, pb, coefs0, coef_n, mode, numactive,      \
-        denshift, num, samples_t, end_bits, err, B, W, S, mb0, kb, wb, st
     switch (taps) {
-        case 8: return alac::launch<8>(ALAC_DECODE_ARGS);
-        case 16: return alac::launch<16>(ALAC_DECODE_ARGS);
-        case 30: return alac::launch<30>(ALAC_DECODE_ARGS);
+        case 8: return alac::launch<8>(a, st);
+        case 16: return alac::launch<16>(a, st);
+        case 30: return alac::launch<30>(a, st);
         default: return (int)cudaErrorInvalidValue;
     }
-#undef ALAC_DECODE_ARGS
 }

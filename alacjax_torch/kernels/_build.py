@@ -34,7 +34,7 @@ _I = ctypes.c_int
 _U = ctypes.c_uint
 # C signatures: name -> argtypes (every function returns int)
 SIGNATURES = {
-    "alac_cost": [_P] * 8 + [_I] * 5 + [_U, _U, _I, _U, _P],
+    "alac_cost": [_P] * 8 + [_I] * 7 + [_U, _U, _I, _U, _P],
     "alac_emit": [_P] * 9 + [_I] * 4 + [_U, _U, _I, _U, _P],
     "alac_predict": [_P] * 5 + [_I] * 4 + [_P],
     "alac_rice_cost": [_P] * 4 + [_I] * 2 + [_U, _U, _I, _U, _P],
@@ -45,6 +45,7 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
+_path = None
 build_seconds = None     # wall time of the build (or load) that ran here
 build_log = ""           # nvcc's stderr per source (-Xptxas -v report)
 
@@ -125,7 +126,7 @@ def _build(out_dir: str) -> str:
 
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
-    global _lib, build_seconds
+    global _lib, _path, build_seconds
     with _lock:
         if _lib is None:
             t0 = time.perf_counter()
@@ -135,9 +136,15 @@ def lib() -> ctypes.CDLL:
                 fn = getattr(cdll, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            _lib = cdll
+            _lib, _path = cdll, path
             build_seconds = time.perf_counter() - t0
         return _lib
+
+
+def lib_path() -> str:
+    """The built library's file (built on first use)."""
+    lib()
+    return _path
 
 
 def check(status: int, name: str) -> None:

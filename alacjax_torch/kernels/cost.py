@@ -1,64 +1,74 @@
 """Wrapper of the fused predict + Rice-cost kernel (csrc/cost.cu), the
-port of alacjax/ops/pallas/cost_pallas.py.  Plain version:
-alacjax_torch.ops.predict."""
+port of alacjax/ops/pallas/cost_pallas.py: one launch prices every order
+of a search.  Plain version: ``plain``, alacjax_torch.ops.predict once
+per order."""
 
 from __future__ import annotations
 
 import torch
 
-from alacjax.types import kALACMaxCoefs
-
 from ..ops import predict
+from ..types import kALACMaxCoefs
 from . import LAUNCHES, expect, lane_vector, on_cuda, stream_ptr
 from ._build import check, lib
 
 ORDERS = (4, 8)     # the orders csrc/cost.cu instantiates
+MAX_ORDERS = 2      # orders one launch takes
 
 
-def plain(x, coefs0, order: int, chanbits, denshift: int, mb0: int,
-          pb: int, kb: int, wb: int, dual: bool = True, num=None):
-    """The plain torch version, with the wrapper's signature and results."""
-    if dual:
-        return predict.pc_block_cost2(x, coefs0, order, chanbits, denshift,
-                                      mb0, pb, kb, wb, num=num)
-    res, c1, coefs = predict.pc_block_cost_coefs(
-        x, coefs0, order, chanbits, denshift, mb0, pb, kb, wb, num=num)
-    return res, c1, torch.zeros_like(c1), coefs
+def plain(x, coefs0, orders, chanbits, denshift: int, mb0: int, pb: int,
+          kb: int, wb: int, dual: bool = True, num=None):
+    """The plain torch version, with the wrapper's signature and results:
+    predict.pc_block_cost2 (``dual``) or pc_block_cost_coefs (cost2
+    zeros) once per order, stacked."""
+    parts = []
+    for od in orders:
+        if dual:
+            parts.append(predict.pc_block_cost2(
+                x, coefs0, od, chanbits, denshift, mb0, pb, kb, wb, num=num))
+        else:
+            res, c1, coefs = predict.pc_block_cost_coefs(
+                x, coefs0, od, chanbits, denshift, mb0, pb, kb, wb, num=num)
+            parts.append((res, c1, torch.zeros_like(c1), coefs))
+    return tuple(torch.stack(p) for p in zip(*parts))
 
 
-def pc_block_cost2(x, coefs0, order: int, chanbits, denshift: int,
-                   mb0: int, pb: int, kb: int, wb: int, dual: bool = True,
-                   num=None):
-    """(L, S) int32 samples -> (residuals (L, S), cost1 (L,), cost2 (L,),
-    adapted coefs (L, 16)), all int32.  ``chanbits`` is an int or a
-    per-lane (L,) int32 tensor; ``num`` (None or (L,) int32, each <= S)
-    stops the cost machines at each lane's sample count.  ``dual=False``
-    runs only the first cost machine (the mixres trial, fast mode) and
-    returns cost2 as zeros."""
+def pc_block_cost2(x, coefs0, orders, chanbits, denshift: int, mb0: int,
+                   pb: int, kb: int, wb: int, dual: bool = True, num=None):
+    """(L, S) int32 samples and a tuple of 1 or 2 predictor orders ->
+    (residuals (n, L, S), cost1 (n, L), cost2 (n, L), adapted coefs
+    (n, L, 16)), all int32, one row per order.  ``chanbits`` is an int
+    or a per-lane (L,) int32 tensor; ``num`` (None or (L,) int32, each
+    <= S) stops the cost machines at each lane's sample count.
+    ``dual=False`` runs only the first cost machine (the mixres trial,
+    fast mode) and returns cost2 as zeros."""
+    orders = tuple(orders)
     lane = [t for t in (chanbits, num) if isinstance(t, torch.Tensor)]
     if not on_cuda(x, coefs0, *lane):
-        return plain(x, coefs0, order, chanbits, denshift, mb0, pb, kb, wb,
+        return plain(x, coefs0, orders, chanbits, denshift, mb0, pb, kb, wb,
                      dual, num)
     L, S = x.shape
     dev = x.device
     expect(x, "x", (L, S))
     expect(coefs0, "coefs0", (L, kALACMaxCoefs))
-    if order not in ORDERS:
-        raise ValueError(f"cost kernel is built for orders {ORDERS}, "
-                         f"not {order}")
+    if not 1 <= len(orders) <= MAX_ORDERS or len(set(orders)) != len(orders) \
+            or any(od not in ORDERS for od in orders):
+        raise ValueError(f"cost kernel takes 1 to {MAX_ORDERS} distinct "
+                         f"orders of {ORDERS}, not {orders}")
     cb = lane_vector(chanbits, L, dev, "chanbits")
     if num is not None:
         expect(num, "num", (L,))
-    xt = x.t().contiguous()                 # (S, L): a warp's loads coalesce
-    res_t = torch.empty((S, L), dtype=torch.int32, device=dev)
-    cost1 = torch.empty((L,), dtype=torch.int32, device=dev)
-    cost2 = torch.zeros((L,), dtype=torch.int32, device=dev)
-    coefs = torch.empty((L, kALACMaxCoefs), dtype=torch.int32, device=dev)
+    n = len(orders)
+    res = torch.empty((n, L, S), dtype=torch.int32, device=dev)
+    cost1 = torch.empty((n, L), dtype=torch.int32, device=dev)
+    cost2 = torch.zeros((n, L), dtype=torch.int32, device=dev)
+    coefs = torch.empty((n, L, kALACMaxCoefs), dtype=torch.int32, device=dev)
     status = lib().alac_cost(
-        xt.data_ptr(), coefs0.data_ptr(), cb.data_ptr(),
-        None if num is None else num.data_ptr(), res_t.data_ptr(),
-        cost1.data_ptr(), cost2.data_ptr(), coefs.data_ptr(), L, S, order,
-        int(dual), denshift, mb0, pb, kb, wb, stream_ptr(x))
+        x.data_ptr(), coefs0.data_ptr(), cb.data_ptr(),
+        None if num is None else num.data_ptr(), res.data_ptr(),
+        cost1.data_ptr(), cost2.data_ptr(), coefs.data_ptr(), L, S,
+        orders[0], orders[-1], n, int(dual), denshift, mb0, pb, kb, wb,
+        stream_ptr(x))
     check(status, "alac_cost")
     LAUNCHES["cost"] += 1
-    return res_t.t().contiguous(), cost1, cost2, coefs
+    return res, cost1, cost2, coefs

@@ -60,16 +60,16 @@ def decode_channel(words, start_bits, num_samples: int, chanbits,
     else:
         chanbits_max = chanbits
         cb_lane = torch.full((B,), chanbits, dtype=torch.int32, device=dev)
-    samples_t = torch.empty((S, B), dtype=torch.int32, device=dev)
+    samples = torch.empty((B, S), dtype=torch.int32, device=dev)
     end = torch.empty((B,), dtype=torch.int32, device=dev)
     err = torch.empty((B,), dtype=torch.int32, device=dev)
     status = lib().alac_decode(
         words.data_ptr(), start_bits.data_ptr(), cb_lane.data_ptr(),
         pb.data_ptr(), coefs0.data_ptr(), coefs0.shape[1], mode.data_ptr(),
         numactive.data_ptr(), denshift.data_ptr(),
-        None if num is None else num.data_ptr(), samples_t.data_ptr(),
+        None if num is None else num.data_ptr(), samples.data_ptr(),
         end.data_ptr(), err.data_ptr(), B, W, S, taps, chanbits_max, mb0,
         kb, wb, stream_ptr(words))
     check(status, "alac_decode")
     LAUNCHES[counter(taps)] += 1
-    return samples_t.t().contiguous(), end, err != 0
+    return samples, end, err != 0

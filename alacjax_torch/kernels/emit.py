@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from alacjax.types import MAX_PREFIX_32
+from ..types import MAX_PREFIX_32
 
 from ..ops import rice
 from . import LAUNCHES, expect, lane_vector, on_cuda, stream_ptr

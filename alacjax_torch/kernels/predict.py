@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from alacjax.types import kALACMaxCoefs
+from ..types import kALACMaxCoefs
 
 from ..ops import predict, rice
 from . import LAUNCHES, expect, lane_vector, on_cuda, stream_ptr

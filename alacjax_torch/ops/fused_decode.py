@@ -23,12 +23,14 @@ from __future__ import annotations
 
 import torch
 
-from alacjax.types import (
+from ..types import (
     MAX_PREFIX_16, MAX_PREFIX_32, MMULSHIFT, N_MAX_MEAN_CLAMP,
     N_MEAN_CLAMP_VAL, PBSHIFT, QB, QBSHIFT,
 )
 
-from .tutils import I32, I64, MASK32, clz32, iota1, sign_extend, u32, wrap_i32
+from .tutils import (
+    I32, I64, MASK32, clz32, count_work, iota1, sign_extend, u32, wrap_i32,
+)
 
 TAPS = 8                # the production FIR walk (fused_decode taps=8)
 LADDER_TAPS = (16, 30)  # the codec's retry programs
@@ -103,6 +105,7 @@ def decode_channel(words, start_bits, num_samples: int, chanbits,
     is31 = na == 31
     tap = iota1(taps, device=dev)[None, :]
     tap_on = tap < na_k[:, None]             # the taps this lane's walk uses
+    walks = ~(is0 | is31)[:, None]           # lanes whose output is the walk's
     weight = na_k[:, None] - tap             # (na - k): a tap's step weight
 
     zero = torch.zeros((B,), dtype=I64, device=dev)
@@ -122,6 +125,7 @@ def decode_channel(words, start_bits, num_samples: int, chanbits,
         active = c < n_eff
         in_run = run_rem > 0
         decode_now = active & ~in_run
+        count_work("coded", decode_now)
         m0 = mb >> QBSHIFT
         k = torch.clamp(31 - clz32(m0 + 3), max=kb)
         m = (1 << k) - 1
@@ -210,6 +214,7 @@ def decode_channel(words, start_bits, num_samples: int, chanbits,
         ok = ~can | (torch.sign(err_k) == sg[:, None])
         still = torch.flip(torch.cumprod(torch.flip(ok.to(I64), [1]), 1), [1])
         acts = can & (still == 1)
+        count_work("taps", acts & walks)
         upd = torch.where(acts, torch.where(pos, -sgn, sgn), 0)
         new_coefs = sign_extend(coefs + upd, 16)
 

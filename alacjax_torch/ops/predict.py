@@ -18,10 +18,10 @@ from __future__ import annotations
 
 import torch
 
-from alacjax.types import kALACMaxCoefs
+from ..types import kALACMaxCoefs
 
 from . import rice
-from .tutils import I32, I64, iota1, sign_extend, wrap_i32
+from .tutils import I32, I64, count_work, iota1, sign_extend, wrap_i32
 
 
 def _scan_cost(x, coefs0, na: int, chanbits, denshift: int, rice_params,
@@ -81,8 +81,9 @@ def _scan_cost(x, coefs0, na: int, chanbits, denshift: int, rice_params,
             for k in range(na - 1, -1, -1):
                 acts[k] = can & (torch.sign(del0) == sg)
                 del0 = wrap_i32(del0 - torch.where(acts[k], step[:, k], 0))
-            upd = torch.where(torch.stack(acts, dim=1),
-                              torch.where(pos, -sgn, sgn), 0)
+            acts = torch.stack(acts, dim=1)
+            count_work("taps", acts)
+            upd = torch.where(acts, torch.where(pos, -sgn, sgn), 0)
             coefs = sign_extend(coefs + upd, 16)
         lags = torch.cat([x_t[:, None], lags[:, :na]], dim=1)
         if rice_params is None:

@@ -13,13 +13,15 @@ from __future__ import annotations
 
 import torch
 
-from alacjax.types import (
+from ..types import (
     BITOFF, MAX_PREFIX_16, MAX_PREFIX_32, MAX_RICE_NUMBITS, MDENSHIFT,
     MMULSHIFT, MOFF, N_MAX_MEAN_CLAMP, N_MEAN_CLAMP_VAL, PBSHIFT, QB,
     QBSHIFT,
 )
 
-from .tutils import I32, I64, MASK32, as_i32_bits, clz32, lg3a, wrap_i32
+from .tutils import (
+    I32, I64, MASK32, as_i32_bits, clz32, count_work, lg3a, wrap_i32,
+)
 
 
 def _divmod_capped(n, m):
@@ -98,6 +100,7 @@ def encode_step_tokens(x, t: int, state, *, S, bit_size, pb: int, kb: int,
     run_bits = torch.where(emit_run, run_bits, 0)
 
     code_now = valid & (~in_run | run_end_nonzero)
+    count_work("coded", code_now)
     zmode = run_end_nonzero.to(I64)
 
     m0 = mb >> QBSHIFT

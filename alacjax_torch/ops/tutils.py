@@ -21,6 +21,29 @@ I32 = torch.int32
 I64 = torch.int64
 MASK32 = 0xFFFFFFFF
 
+# The plain versions' data-dependent work, for sizing a kernel's least
+# time (chip_smoke.py): None, or a dict into which the plain loops count
+# the samples a Rice machine coded or decoded ("coded"; the others sat in
+# a zero run or past the lane's count) and the steps the sign-sign walks
+# took ("taps").  Entries are keyed (key, mask shape) and hold running
+# per-element counts, one in-place add per step; ``work_total`` sums them.
+WORK = None
+
+
+def count_work(key: str, mask) -> None:
+    """Count the true entries of ``mask`` under ``key`` while WORK is set."""
+    if WORK is not None:
+        acc = WORK.get((key, mask.shape))
+        if acc is None:
+            WORK[(key, mask.shape)] = mask.to(I64, copy=True)
+        else:
+            acc += mask
+
+
+def work_total(work: dict, key: str) -> int:
+    """All of ``key``'s counts in a WORK dict."""
+    return sum(int(v.sum().item()) for (k, _), v in work.items() if k == key)
+
 
 def u32(x):
     """Unsigned 32-bit view of an int tensor, as int64 in [0, 2^32)."""

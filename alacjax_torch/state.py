@@ -11,8 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from alacjax.oracle import dp as oracle_dp
-from alacjax.types import DENSHIFT_DEFAULT, kALACMaxCoefs
+from .oracle import dp as oracle_dp
+from .types import DENSHIFT_DEFAULT, kALACMaxCoefs
 
 
 def coefs_from_numpy(coefs, device="cpu") -> torch.Tensor:

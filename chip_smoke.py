@@ -7,7 +7,10 @@ Phases, each of which exits nonzero on failure:
   1. the card's name and power limit (nvidia-smi); no CUDA -> exit 1;
   2. build the CUDA kernels from alacjax_torch/csrc (one nvcc per source,
      all started together, sm_90a) and print ptxas's registers and
-     spills for each kernel instance;
+     spills for each kernel instance, and each instance's innermost
+     loops in SASS (cuobjdump -sass: size and shortest trip, the
+     instructions a kernel issues per lane-sample, to hold beside the
+     operations the function needs);
   3. kernels against their plain torch versions on the card, on recorded
      inputs: every kernel call of one device-resident encode + decode of
      the phase-4 corpus, one call per distinct (taps, chanbits) of the
@@ -16,7 +19,9 @@ Phases, each of which exits nonzero on failure:
      (phase 8's stereo corpus and the 5.1 corpus) — a new signature's
      call at S = 4096 is compared on its first PREFIX samples (with num
      clamped there), a causal prefix being a whole input of its own; the
-     results must be exactly equal;
+     results must be exactly equal; each call's bound is printed beside
+     (see ``work``: bytes at 3.35 TB/s or the operations the function
+     needs at the SMs' issue rate, whichever is longer);
   4. the main path: TorchCodec encode_frames -> decode_frames_ex on the
      bench corpus (bench.py :: make_music, B=4096 frames of 16-bit
      stereo, S=4096): lossless, no frame flagged, the first 256 packets
@@ -47,9 +52,11 @@ Phases, each of which exits nonzero on failure:
 Each path (phases 4-8) runs with the launch counts set to 0 just before
 it and read just after; a kernel of the path that was not launched
 fails the run.  The line before the last is a JSON object of per-kernel
-results ("launches" sums the paths' counts; "ms" and "plain_ms" sum a
-kernel's compared calls, on the inputs compared); the last line is the
-JSON result line.  ``--profile DIR`` also writes torch.profiler tables
+results ("launches" sums the paths' counts; "ms", "plain_ms" and
+"bound_ms" sum a kernel's compared calls, on the inputs compared;
+"library_ms" is null, no single PyTorch call computing any of these
+scans); the last line is the JSON result line.  ``--profile DIR`` also
+writes torch.profiler tables
 of one device-resident encode + decode of phase 4 (DIR/profile.txt), one
 phase-5 decode (DIR/profile_51.txt), the three phase-6 rungs
 (DIR/profile_ladder.txt), one phase-7 5.1 encode (DIR/profile_enc51.txt)
@@ -104,6 +111,40 @@ PATH_KERNELS = {         # the kernels each path must launch
     "phase 7": ("cost", "emit", "merge"),
     "phase 8": ("predict", "rice_cost", "emit", "merge"),
 }
+HBM_BYTES_PER_S = 3.35e12    # one H100 SXM's device memory rate
+# Lane operations one Hopper SM issues per clock: four schedulers, each
+# one warp instruction (32 lanes) a clock, whatever the pipe.  The scans'
+# multiply-adds go down the FMA pipe and their adds, logic, shifts and
+# selects down the ALU pipe, side by side, so for their mix the issue
+# rate is the ceiling (ALU operations alone would be held to 64).
+LANE_OPS_PER_SM_CLOCK = 128
+# Operations one lane-sample of a scan needs, counted from the
+# reference's arithmetic (dp_enc.c / dp_dec.c, ag_enc.c / ag_dec.c, as
+# csrc/ writes it; a multiply-add, a three-input add and a sign extension
+# are one operation each), whatever the kernel issues.  The counts that
+# depend on the data (samples a Rice machine codes, steps the sign-sign
+# walk takes) are the plain version's own on the same inputs
+# (alacjax_torch.ops.tutils.WORK).
+FIR_PER_TAP = 2      # per tap of the lane's order: lag difference, multiply-add
+FIR_FIXED = 4        # per sample past the warm-up: the rounding shift, the
+                     # residual's add, its sign extension, its sign
+WALK_STEP = 8        # per walk step: the difference's sign (2), the
+                     # coefficient's step and 16-bit wrap (2), |d|, the
+                     # shift, the weighted multiply-subtract, the side test
+RICE_PRICE = 30      # per coded sample of a cost machine: k (4), m (2), the
+                     # folded value (3), the capped quotient and remainder
+                     # (3), the length (3), the escape test and length (4),
+                     # the running sum (1), the mean's update and clamp (6),
+                     # the zero-run test and state (4)
+RICE_EMIT = RICE_PRICE + 12  # + the codeword's value (4), the escape
+                             # payload (2), the append to the word (6)
+RICE_DECODE = 36     # per decoded sample: k (4), m (2), 32 bits cut at the
+                     # cursor (3), the prefix (2), the suffix (3), the
+                     # escape test (1), n (3), the cursor's advance (4),
+                     # the unfolded residual (4), the mean (6), the
+                     # zero-run test (4)
+RICE_IDLE = 3        # per sample inside a zero run
+DIFF_STAGE = 2       # per sample of a first difference or running sum
 SMALL_ENCODES = (        # phase 7's B=512 stereo encodes
     ("20-bit stereo", dict(bit_depth=20)),
     ("32-bit stereo", dict(bit_depth=32)),
@@ -125,6 +166,162 @@ def card_line() -> str:
     if proc.returncode != 0 or not proc.stdout.strip():
         fail(f"nvidia-smi failed: {proc.stderr.strip()}")
     return proc.stdout.strip().splitlines()[0]
+
+
+def max_sm_clock_hz() -> float:
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60)
+    if proc.returncode != 0 or not proc.stdout.strip():
+        fail(f"nvidia-smi failed: {proc.stderr.strip()}")
+    return float(proc.stdout.split()[0]) * 1e6
+
+
+def sass_loops(lib_path: str) -> dict:
+    """{kernel function: [(size, shortest path), ...] of its innermost
+    loops, in SASS instructions} from `cuobjdump -sass` of the built
+    library.  A loop is the span from a backward branch's target to the
+    last branch back to it, innermost when it holds no other; its
+    shortest path is the fewest instructions one trip from the top back
+    to it can issue (every arm of a branch but the shortest skipped)."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    proc = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"cuobjdump failed: {proc.stderr.strip()[-2000:]}")
+    loops = {}
+    fn, labels, code, pending = None, {}, [], []
+
+    def close():
+        # code: [(addr, text, branch target or None)]
+        targets = [(labels.get(t, t), addr, text) for addr, text, t in code
+                   if t is not None]
+        ends = {}
+        for t, addr, _ in targets:
+            if isinstance(t, int) and t <= addr:
+                ends[t] = max(addr, ends.get(t, addr))
+        spans = list(ends.items())
+        index = {addr: i for i, (addr, _, _) in enumerate(code)}
+        out = []
+        for a, b in spans:
+            if any((c, d) != (a, b) and a <= c and d <= b for c, d in spans):
+                continue
+            # breadth-first from the top until a branch back to it
+            dist, frontier, best = {a: 1}, [a], None
+            while frontier and best is None:
+                step = []
+                for addr in frontier:
+                    _, text, t = code[index[addr]]
+                    t = labels.get(t, t)
+                    if t == a:
+                        best = dist[addr]
+                        break
+                    stops = not text.startswith("@") and (
+                        re.match(r"(EXIT|RET)\b", text)
+                        or re.match(r"BRA\s+(`|0x)", text))
+                    nxt = [] if stops else [addr + 16]
+                    if isinstance(t, int):
+                        nxt.append(t)
+                    for n in nxt:
+                        if n in index and n not in dist:
+                            dist[n] = dist[addr] + 1
+                            step.append(n)
+                frontier = step
+            out.append(((b - a) // 16 + 1, best))
+        loops[fn] = sorted(out)
+
+    for line in proc.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            if fn is not None:
+                close()
+            fn, labels, code, pending = m.group(1), {}, [], []
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and fn is not None:
+            addr = int(m.group(1), 16)
+            for label in pending:
+                labels[label] = addr
+            pending = []
+            text = m.group(2)
+            b = re.search(r"\bBRA\b[^;]*?(?:\((\.L_x_\d+)\)|(0x[0-9a-f]+))",
+                          text)
+            code.append((addr, text, None if not b else
+                         b.group(1) or int(b.group(2), 16)))
+    if fn is not None:
+        close()
+    return loops
+
+
+def nbytes(values) -> int:
+    import torch
+    return sum(v.numel() * v.element_size() for v in values
+               if isinstance(v, torch.Tensor))
+
+
+def work(call, got, counts):
+    """(bytes, operations, lane-samples) one kernel call must spend on
+    these inputs: each input tensor read once and each output written
+    once (a decode reads only the bits its lanes consumed); the
+    operations at the counts above, each walk at its lane's own order,
+    with the plain version's ``counts`` of coded samples and walk steps
+    on the same inputs."""
+    import inspect
+    import torch
+    name, wrapper, _, args, kwargs = call
+    outs = got if isinstance(got, tuple) else (got,)
+    moved = nbytes(list(args) + list(kwargs.values())) + nbytes(outs)
+    if name == "merge":
+        return moved, 0, 0
+    a = inspect.signature(wrapper).bind(*args, **kwargs)
+    a.apply_defaults()
+    a = a.arguments
+    x = next(iter(a.values()))
+    L = x.shape[0]
+    i64 = torch.int64
+    from alacjax_torch.ops.tutils import work_total
+    coded = work_total(counts, "coded")
+    ops = WALK_STEP * work_total(counts, "taps")
+    if name in ("decode", "decode_hi"):
+        S = a["num_samples"]
+        used = (outs[1].to(i64) - a["start_bits"].to(i64)).clamp(min=0)
+        moved += int(used.sum().item()) // 8 - nbytes([x])
+        n = (torch.full((L,), S, dtype=i64, device=x.device)
+             if a["num"] is None else a["num"].to(i64))
+        na = a["numactive"].to(i64)
+        order = na.clamp(max=a["taps"])
+        past = (n - order - 1).clamp(min=0)     # samples past the warm-up
+        fir = torch.where((na >= 1) & (na <= 30),
+                          past * (FIR_PER_TAP * order + FIR_FIXED),
+                          torch.where(na == 31, DIFF_STAGE * n, 0))
+        diff = DIFF_STAGE * n[a["mode"] != 0].sum()
+        ops += (int((fir.sum() + diff).item()) + RICE_DECODE * coded
+                + RICE_IDLE * (int(n.sum().item()) - coded))
+        return moved, ops, L * S
+    S = x.shape[1]
+    n = S * L if a.get("num") is None else int(a["num"].sum().item())
+    if name == "cost":
+        machines = 2 if a["dual"] else 1
+        orders = a["orders"]
+        ops += sum(L * max(S - od - 1, 0) * (FIR_PER_TAP * od + FIR_FIXED)
+                   for od in orders)
+        ops += len(orders) * (machines - 1) * DIFF_STAGE * n
+        machine_samples = len(orders) * machines * n
+        ops += RICE_PRICE * coded + RICE_IDLE * (machine_samples - coded)
+    elif name == "predict":
+        od = a["order"]
+        ops += L * max(S - od - 1, 0) * (FIR_PER_TAP * od + FIR_FIXED)
+    else:
+        per = RICE_EMIT if name == "emit" else RICE_PRICE
+        ops += per * coded + RICE_IDLE * (n - coded)
+    return moved, ops, L * S
 
 
 def timed(fn, reps: int):
@@ -174,13 +371,13 @@ def forced_order_packet(cfg, pcm, orders, modes, mixres=2):
     knobs, byte for byte.  pcm is planar (C, n); n < frame_length makes a
     partial frame."""
     import numpy as np
-    from alacjax.bitbuffer import BitBuffer
-    from alacjax.oracle import ag, dp, matrix
-    from alacjax.oracle.encoder import (
+    from alacjax_torch.bitbuffer import BitBuffer
+    from alacjax_torch.oracle import ag, dp, matrix
+    from alacjax_torch.oracle.encoder import (
         DEFAULT_MIX_BITS, PB_FACTOR, _rice_params, _write_channel_params,
         _write_element_header,
     )
-    from alacjax.types import DENSHIFT_DEFAULT, ElementTag
+    from alacjax_torch.types import DENSHIFT_DEFAULT, ElementTag
 
     bits = BitBuffer(byte_size=4 * cfg.max_escape_packet_bytes(
         cfg.frame_length) + 256)
@@ -301,7 +498,9 @@ def describe(name: str, args, kwargs) -> str:
     def v(x):
         return "lane" if hasattr(x, "shape") else x
     parts = []
-    if name in ("cost", "predict"):
+    if name == "cost":
+        parts = [f"orders {args[2]}", f"chanbits {v(args[3])}"]
+    elif name == "predict":
         parts = [f"order {args[2]}", f"chanbits {v(args[3])}"]
     elif name in ("emit", "rice_cost"):
         parts = [f"bit_size {v(args[1])}"]
@@ -315,20 +514,27 @@ def describe(name: str, args, kwargs) -> str:
     return " ".join(parts)
 
 
-def compare_kernels(calls, rows, cut: bool = False):
+def compare_kernels(calls, rows, int_ops_per_s: float, cut: bool = False):
     """Phase 3: each recorded call through its kernel and through its
-    plain version on the same inputs, on the card.  With ``cut`` a scan
-    call longer than PREFIX samples is compared on its first PREFIX
-    (its kernel time on the whole input is printed beside)."""
+    plain version on the same inputs, on the card, beside the call's
+    bound.  With ``cut`` a scan call longer than PREFIX samples is
+    compared on its first PREFIX (its kernel time on the whole input is
+    printed beside)."""
+    from alacjax_torch.ops import tutils
     for call in calls:
         whole = call
         call, was_cut = prefix(call, PREFIX) if cut else (call, False)
         name, wrapper, plain, args, kwargs = call
         got, ms = timed(lambda: wrapper(*args, **kwargs), reps=3)
+        tutils.WORK = {}
         want, plain_ms = timed_once(lambda: plain(*args, **kwargs))
+        counts, tutils.WORK = tutils.WORK, None
         err = max_abs_err(got if isinstance(got, tuple) else (got,),
                           want if isinstance(want, tuple) else (want,))
         row = rows[name]
+        moved, ops, lane_samples = work(call, got, counts)
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / int_ops_per_s * 1e3
         shape = "x".join(str(d) for d in args[0].shape)
         note = ""
         if was_cut:
@@ -340,13 +546,20 @@ def compare_kernels(calls, rows, cut: bool = False):
         print(f"  {name:9s} call {row['calls']} on {shape:12s} "
               f"{describe(name, args, kwargs)}: "
               f"kernel {ms:10.4f} ms   plain {plain_ms:12.3f} ms   "
-              f"max_abs_err {err}{note}", flush=True)
+              f"bound {max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, "
+              f"operations {ops_ms:.4f}: "
+              f"{ops / max(lane_samples, 1):.1f} per lane-sample)   "
+              f"max_abs_err {err}{note}",
+              flush=True)
         if err != 0:
             fail(f"{name} kernel disagrees with its plain version")
         row["calls"] += 1
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["ms"] += ms
         row["plain_ms"] += plain_ms
+        row["bound_ms"] += max(bytes_ms, ops_ms)
+        row["bytes_ms"] += bytes_ms
+        row["ops_ms"] += ops_ms
 
 
 @contextlib.contextmanager
@@ -379,7 +592,7 @@ def main_path(pcm, cfg, codec, counts):
     device-resident steady state."""
     import numpy as np
     import torch
-    from alacjax import native
+    from alacjax_torch import native
 
     torch.cuda.reset_peak_memory_stats()
     with path_run("phase 4", counts):
@@ -439,7 +652,7 @@ def make_51(cfg):
     are natively encoded and tiled to B.  Returns (pcm (B, 6, S) int32
     with zeros past each frame's length, packets, nums)."""
     import numpy as np
-    from alacjax import native
+    from alacjax_torch import native
     from bench import make_music
     n = N_DISTINCT_51
     hi = np.concatenate([make_music(n, S, seed=s) for s in (7, 8, 9)], axis=1)
@@ -462,7 +675,7 @@ def layouts_and_depths(codec, pcm, packets, nums, counts):
     resident."""
     import numpy as np
     import torch
-    from alacjax import native
+    from alacjax_torch import native
 
     cfg = codec.config
     torch.cuda.reset_peak_memory_stats()
@@ -524,7 +737,7 @@ def retry_ladder(cfg, pcm, packets, counts, main4):
     """Phase 6: the ladder through the host API, then each rung's
     device-resident decode."""
     import numpy as np
-    from alacjax import native
+    from alacjax_torch import native
     from alacjax_torch import TorchCodec
 
     codec = TorchCodec(cfg, chunk=B, device="cuda")
@@ -580,7 +793,7 @@ def encode_layouts(codec51, pcm, packets51, nums, x, n, counts):
     the card; then the small stereo encodes."""
     import numpy as np
     import torch
-    from alacjax import native
+    from alacjax_torch import native
     from alacjax_torch import AlacConfig, TorchCodec
     from bench import make_music
 
@@ -698,7 +911,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
 
     sys.path.insert(0, repo)
-    from alacjax import native
+    from alacjax_torch import native
     from alacjax_torch import AlacConfig, TorchCodec
     from alacjax_torch.kernels import LAUNCHES, _build
     from bench import make_music
@@ -710,6 +923,9 @@ def main() -> int:
         if line.startswith("==") or any(
                 k in line for k in ("entry function", "registers", "spill")):
             print(f"  ptxas: {line.strip()}")
+    for fn, sizes in sorted(sass_loops(_build.lib_path()).items()):
+        print(f"  sass: {fn}: innermost loops (instructions, shortest "
+              f"path): {[s for s in sizes if s[0] > 1]}")
     if not native.available():
         fail(f"native C++ codec unavailable: {native.build_error()}")
 
@@ -732,7 +948,13 @@ def main() -> int:
     n51 = torch.from_numpy(nums51.astype(np.int32)).to("cuda")
 
     # phase 3: kernels vs plain versions on recorded inputs
-    print(f"phase 3: kernels vs plain torch on {kind} ({card})", flush=True)
+    clock = max_sm_clock_hz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    int_ops = sms * LANE_OPS_PER_SM_CLOCK * clock
+    print(f"phase 3: kernels vs plain torch on {kind} ({card}); bounds at "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s and {sms} SMs x "
+          f"{LANE_OPS_PER_SM_CLOCK} lane operations x {clock / 1e6} MHz",
+          flush=True)
     with recording([]) as calls:
         words, _ = codec._encode(x)
         codec._decode(words)
@@ -745,9 +967,10 @@ def main() -> int:
     calls += one_per_signature(calls51) + one_per_signature(
         [c for c in calls_hi if c[0] == "decode_hi"])
     del words, w_hi, calls51, calls_hi
-    rows = {k: dict(calls=0, ms=0.0, plain_ms=0.0, max_abs_err=0)
+    rows = {k: dict(calls=0, ms=0.0, plain_ms=0.0, max_abs_err=0,
+                    bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
             for k in REPLACES}
-    compare_kernels(calls, rows)
+    compare_kernels(calls, rows, int_ops)
     # the new signatures: per-lane chanbits and num (the 5.1 encode) and
     # the standalone-predictor route (stereo and 5.1)
     seen = {signature(c) for c in calls}
@@ -761,7 +984,7 @@ def main() -> int:
             run()
         new_calls += one_per_signature(rec, seen)
         del rec
-    compare_kernels(new_calls, rows, cut=True)
+    compare_kernels(new_calls, rows, int_ops, cut=True)
     del new_calls, legacy, legacy51
     missing = [k for k, r in rows.items() if r["calls"] == 0]
     if missing:
@@ -808,12 +1031,17 @@ def main() -> int:
         fail("jax was imported")
     if set(LAUNCHES) != set(REPLACES):
         fail(f"kernel set changed: {sorted(LAUNCHES)}")
-    kernels = [dict(name=name, route="cuda", source=SOURCES[name],
-                    replaces=REPLACES[name],
-                    launches=sum(c[name] for c in counts.values()),
-                    max_abs_err=rows[name]["max_abs_err"],
-                    ms=rows[name]["ms"], plain_ms=rows[name]["plain_ms"])
-               for name in REPLACES]
+    kernels = []
+    for name, row in rows.items():
+        entry = dict(name=name, route="cuda", source=SOURCES[name],
+                     replaces=REPLACES[name],
+                     launches=sum(c[name] for c in counts.values()),
+                     max_abs_err=row["max_abs_err"], ms=row["ms"],
+                     plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                     bound_by=("bytes" if row["bytes_ms"] >= row["ops_ms"]
+                               else "operations"),
+                     library_ms=None)
+        kernels.append(entry)
     print(f"total wall time {time.perf_counter() - t_start} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,7 @@ from alacjax.oracle import ALACEncoder
 from alacjax.types import AlacConfig
 from alacjax_torch import TorchCodec, get_codec
 from conftest import gen_pcm
+from torch_encode_cases import torch_config
 
 KINDS = ["sine", "silence", "impulse", "noise", "sine", "sine", "impulse",
          "silence"]
@@ -34,7 +35,7 @@ class RecordingCodec(TorchCodec):
 
 
 def _encode_both(cfg, pcm):
-    codec = RecordingCodec(cfg, chunk=len(pcm))
+    codec = RecordingCodec(torch_config(cfg), chunk=len(pcm), device="cpu")
     packets = codec.encode_frames(pcm)
     words, bits = codec.last
     jw, jb = jax_encode(jnp.asarray(pcm.astype(np.int32)), cfg,
@@ -78,7 +79,7 @@ def test_all_escape_batch_matches_oracle():
     cfg = AlacConfig(bit_depth=16, num_channels=2, frame_length=256)
     rng = np.random.default_rng(256)
     pcm = np.stack([gen_pcm(rng, "noise", 2, 256, 16) for _ in range(3)])
-    codec = RecordingCodec(cfg, chunk=len(pcm))
+    codec = RecordingCodec(torch_config(cfg), chunk=len(pcm), device="cpu")
     packets = codec.encode_frames(pcm)
     words, bits = codec.last
     n_bits = 23 + 2 * 256 * 16 + 3
@@ -95,8 +96,8 @@ def test_mono_packets_match_oracle_and_roundtrip():
     rng = np.random.default_rng(255)
     pcm = np.stack([gen_pcm(rng, k, 1, 256, 16)
                     for k in ("sine", "noise", "silence", "impulse")])
-    codec = get_codec(cfg, chunk=3)
-    assert get_codec(cfg, chunk=3) is codec
+    codec = get_codec(torch_config(cfg), chunk=3, device="cpu")
+    assert get_codec(torch_config(cfg), chunk=3, device="cpu") is codec
     packets = codec.encode_frames(pcm)
     enc = ALACEncoder(cfg, independent_frames=True)
     assert packets == [enc.encode_packet(f) for f in pcm]

@@ -15,9 +15,11 @@ import jax.numpy as jnp
 
 from alacjax.codec import decode_frames_device as jax_decode
 from alacjax.oracle import ALACEncoder
-from alacjax.types import AlacConfig, AlacParamError
+from alacjax.types import AlacConfig
 from alacjax_torch import TorchCodec
+from alacjax_torch.types import AlacParamError
 from conftest import gen_pcm
+from torch_encode_cases import torch_config
 
 KINDS = ["sine", "silence", "impulse", "noise", "sine", "sine", "impulse",
          "silence"]
@@ -38,7 +40,8 @@ def _decode_both(cfg, pcm):
 
 
 def _decode_both_packets(cfg, packets):
-    codec = RecordingCodec(cfg, chunk=len(packets))
+    codec = RecordingCodec(torch_config(cfg), chunk=len(packets),
+                           device="cpu")
     out, nums = codec.decode_frames_ex(packets)
     words, tout = codec.last
     jout = jax_decode(jnp.asarray(words.numpy().view(np.uint32)), cfg,

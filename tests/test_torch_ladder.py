@@ -19,6 +19,7 @@ from alacjax_torch import TorchCodec
 from alacjax_torch.kernels import decode as k_decode
 from conftest import gen_pcm
 from test_high_order_decode import build_packet
+from torch_encode_cases import torch_config
 
 S = 64
 N = 64
@@ -52,7 +53,7 @@ def test_high_order_chunk_decodes_on_the_ladder(taps_seen):
         pcm = gen_pcm(rng, "sine", 2, S, 16)
         packets.append(build_packet(cfg, pcm, [order, order],
                                     [15 * (b % 3 == 0)] * 2))
-    codec = TorchCodec(cfg, chunk=N)
+    codec = TorchCodec(torch_config(cfg), chunk=N, device="cpu")
     out, nums = codec.decode_frames_ex(packets)
     assert codec.fallback_frames == 0
     assert sorted(set(taps_seen)) == [8, 16, 30]
@@ -67,7 +68,7 @@ def test_few_flagged_lanes_go_to_the_oracle(taps_seen):
     pcm = [gen_pcm(rng, "sine", 1, S, 16) for _ in range(N)]
     packets = [enc.encode_packet(x) for x in pcm]
     packets[17] = build_packet(cfg, pcm[17], [24], [0])
-    codec = TorchCodec(cfg, chunk=N)
+    codec = TorchCodec(torch_config(cfg), chunk=N, device="cpu")
     out, _ = codec.decode_frames_ex(packets)
     assert codec.fallback_frames == 1
     assert set(taps_seen) == {8}

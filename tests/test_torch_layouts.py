@@ -20,11 +20,13 @@ import jax.numpy as jnp
 
 from alacjax.codec import decode_frames_jit
 from alacjax.oracle import ALACEncoder
-from alacjax.types import AlacConfig, AlacParamError
+from alacjax.types import AlacConfig
 from alacjax_torch import TorchCodec
 from alacjax_torch.codec import _encode_packet_chunks, decode_frames_device
 from alacjax_torch.ops import bitpack
+from alacjax_torch.types import AlacParamError
 from conftest import gen_pcm
+from torch_encode_cases import torch_config
 
 S = 128
 KINDS = ["sine", "noise", "impulse", "silence", "sine", "noise", "sine",
@@ -51,7 +53,8 @@ def words_of(cfg, packets):
 def decode_both(cfg, packets):
     """(torch (pcm, err, num), jax (pcm, err, num)) as numpy arrays."""
     words = words_of(cfg, packets)
-    got = decode_frames_device(torch.from_numpy(words.view(np.int32)), cfg, S)
+    got = decode_frames_device(torch.from_numpy(words.view(np.int32)),
+                               torch_config(cfg), S)
     want = decode_frames_jit(jnp.asarray(words), cfg, S, 8)
     return [g.numpy() for g in got], [np.asarray(w) for w in want]
 
@@ -93,7 +96,8 @@ def test_24bit_rice_escape_reads_chanbits_bits():
     packets = [ALACEncoder(cfg, independent_frames=True).encode_packet(f)
                for f in x]
     dec, err, num = (t.numpy() for t in decode_frames_device(
-        torch.from_numpy(words_of(cfg, packets).view(np.int32)), cfg, S))
+        torch.from_numpy(words_of(cfg, packets).view(np.int32)),
+        torch_config(cfg), S))
     assert not err.any()
     np.testing.assert_array_equal(dec, x)
 
@@ -108,7 +112,7 @@ def test_24bit_shift_bytes_reinserted():
     hi = np.stack([np.round(np.sin(t * 0.05 + p) * 20000) for p in (0, 1)])
     x = (hi.astype(np.int64) << 8) | rng.integers(0, 256, (2, S))
     packets = [ALACEncoder(cfg, independent_frames=True).encode_packet(x)]
-    codec = TorchCodec(cfg, chunk=1)
+    codec = TorchCodec(torch_config(cfg), chunk=1, device="cpu")
     out, nums = codec.decode_frames_ex(packets)
     assert codec.fallback_frames == 0
     np.testing.assert_array_equal(nums, [S])
@@ -123,14 +127,15 @@ def test_encode_refuses_a_decode_only_layout(depth, nch):
     coefficient banks (alacjax's stream encode), which it does not
     port."""
     cfg = AlacConfig(bit_depth=depth, num_channels=nch, frame_length=64)
-    codec = TorchCodec(cfg, chunk=2)
+    codec = TorchCodec(torch_config(cfg), chunk=2, device="cpu")
     pcm = np.zeros((2, nch, 64), np.int32)
     pcm[1, :, ::7] = 5
     packets = codec.encode_frames(pcm)
     enc = ALACEncoder(cfg, independent_frames=True)
     assert packets == [enc.encode_packet(f) for f in pcm]
     with pytest.raises(AlacParamError):
-        _encode_packet_chunks(torch.from_numpy(pcm), cfg, codec.num_words,
+        _encode_packet_chunks(torch.from_numpy(pcm), codec.config,
+                              codec.num_words,
                               banks={})
     out, nums = codec.decode_frames_ex(packets)
     assert codec.fallback_frames == 0

@@ -1,6 +1,7 @@
-"""Properties of the alacjax_torch package itself: it never imports jax,
-its kernel wrappers run the plain version only for CPU tensors and
-refuse anything else rather than fall back, and the GPU smoke script
+"""Properties of the alacjax_torch package itself: it never imports jax
+or any module of alacjax, its codec runs on the card unless asked for
+the CPU, its kernel wrappers run the plain version only for CPU tensors
+and refuse anything else rather than fall back, and the GPU smoke script
 fails without a card.  The tests marked ``cuda`` hold each CUDA kernel
 against its plain version on a card and skip without one.  The machine
 with the card need not have jax, so run them there without the test
@@ -10,6 +11,7 @@ tier's conftest (which pins jax to the CPU):
 """
 
 import ast
+import inspect
 import os
 import pathlib
 import shutil
@@ -20,9 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from alacjax.oracle.encoder import PB_FACTOR
-from alacjax.types import DENSHIFT_DEFAULT, AlacConfig, KB0, MB0, PB0
-from alacjax_torch import TorchCodec, kernels
+from alacjax_torch import TorchCodec, get_codec, kernels
 from alacjax_torch.kernels import _build
 from alacjax_torch.kernels import cost as k_cost
 from alacjax_torch.kernels import decode as k_decode
@@ -30,23 +30,25 @@ from alacjax_torch.kernels import emit as k_emit
 from alacjax_torch.kernels import merge as k_merge
 from alacjax_torch.kernels import predict as k_predict
 from alacjax_torch.ops import bitpack, fused_decode, predict, rice
+from alacjax_torch.oracle.encoder import PB_FACTOR
 from alacjax_torch.state import init_coefs_batched
+from alacjax_torch.types import DENSHIFT_DEFAULT, AlacConfig, KB0, MB0, PB0
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "alacjax_torch"
 WB = (1 << KB0) - 1
 RICE = (MB0, PB0, KB0, WB)
-JAX_MODULES = ("jax", "jaxlib", "alacjax.ops", "alacjax.codec")
+FOREIGN = ("jax", "jaxlib", "alacjax")     # top-level packages refused
 
 
 def test_import_leaves_jax_out():
+    """Importing the port loads no module of jax or of alacjax."""
     code = ("import sys\n"
             "import alacjax_torch, alacjax_torch.codec, alacjax_torch.kernels\n"
-            "import alacjax_torch.state\n"
+            "import alacjax_torch.state, alacjax_torch.native\n"
             "from alacjax_torch.kernels import cost, decode, emit, merge\n"
             "from alacjax_torch.kernels import predict\n"
-            "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith(('jax.', 'jaxlib', 'alacjax.ops', 'alacjax.codec'))]\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in {FOREIGN!r}]\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -55,8 +57,8 @@ def test_import_leaves_jax_out():
 
 
 def test_sources_import_no_jax():
-    """No module of the package (nor chip_smoke.py) names jax, or an
-    alacjax module that imports it, in an import statement."""
+    """No module of the package (nor chip_smoke.py) names jax or an
+    alacjax module in an import statement."""
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
@@ -67,7 +69,7 @@ def test_sources_import_no_jax():
             else:
                 continue
             for name in names:
-                assert not name.startswith(JAX_MODULES), (path, name)
+                assert name.split(".")[0] not in FOREIGN, (path, name)
 
 
 def _field(packet: bytes, bit: int, n: int) -> int:
@@ -122,14 +124,14 @@ def test_cpu_tensors_take_the_plain_version(rng):
     counts no launch."""
     x, c0 = _small_inputs(rng)
     kernels.reset_launches()
-    got = k_cost.pc_block_cost2(x, c0, 8, 17, 9, *RICE, dual=True)
+    got = k_cost.pc_block_cost2(x, c0, (8,), 17, 9, *RICE, dual=True)
     want = predict.pc_block_cost2(x, c0, 8, 17, 9, *RICE)
     for g, w in zip(got, want):
-        assert torch.equal(g, w)
-    got = k_cost.pc_block_cost2(x, c0, 4, 17, 9, *RICE, dual=False)
+        assert torch.equal(g[0], w)
+    got = k_cost.pc_block_cost2(x, c0, (4,), 17, 9, *RICE, dual=False)
     want = predict.pc_block_cost_coefs(x, c0, 4, 17, 9, *RICE)
     for g, w in zip((got[0], got[1], got[3]), want):
-        assert torch.equal(g, w)
+        assert torch.equal(g[0], w)
     start = torch.tensor([0, 5, 31, 64], dtype=torch.int32)
     got = k_emit.rice_encode_words(x, 17, *RICE, start)
     want = rice.rice_encode_words(x, 17, *RICE, start)
@@ -168,7 +170,8 @@ def test_cpu_tensors_take_the_plain_version(rng):
 def test_other_devices_raise_instead_of_falling_back(rng):
     x, c0 = _small_inputs(rng)
     with pytest.raises(ValueError, match="unsupported device"):
-        k_cost.pc_block_cost2(x.to("meta"), c0.to("meta"), 8, 17, 9, *RICE)
+        k_cost.pc_block_cost2(x.to("meta"), c0.to("meta"), (8,), 17, 9,
+                              *RICE)
     with pytest.raises(ValueError, match="mixed devices"):
         k_emit.rice_encode_words(x.to("meta"), 17, *RICE,
                                  torch.zeros((4,), dtype=torch.int32))
@@ -190,6 +193,21 @@ def test_cuda_entry_raises_without_a_gpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.lib()
     assert not (tmp_path / "build").exists()
+
+
+def test_codec_defaults_to_the_card():
+    """TorchCodec(cfg) and get_codec(cfg) put their work on "cuda"; on a
+    box without a card they raise, naming the device, rather than run on
+    the CPU."""
+    for fn in (TorchCodec, get_codec):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    cfg = AlacConfig(bit_depth=16, num_channels=2, frame_length=64)
+    for fn in (TorchCodec, get_codec):
+        with pytest.raises(RuntimeError, match="'cuda'.*no CUDA device"):
+            fn(cfg)
+    assert TorchCodec(cfg, device="cpu").device == torch.device("cpu")
 
 
 @pytest.mark.parametrize("alone", [False, True])
@@ -230,7 +248,8 @@ def _same(got, want):
 def test_cost_kernel_on_card(cuda, order, dual):
     x, c0 = _small_inputs(np.random.default_rng(order), L=96, S=300)
     x, c0 = x.to(cuda), c0.to(cuda)
-    got = k_cost.pc_block_cost2(x, c0, order, 17, 9, *RICE, dual=dual)
+    got = k_cost.pc_block_cost2(x, c0, (order,), 17, 9, *RICE, dual=dual)
+    got = [g[0] for g in got]
     if dual:
         _same(got, predict.pc_block_cost2(x, c0, order, 17, 9, *RICE))
     else:
@@ -307,7 +326,7 @@ def test_51_24bit_decode_on_card(cuda):
     """24-bit 5.1 (four chained elements, shift bytes, an escaped frame
     and a partial one) decodes losslessly on the card, equal to the
     codec on the CPU."""
-    from alacjax.oracle import ALACEncoder
+    from alacjax_torch.oracle import ALACEncoder
     cfg = AlacConfig(bit_depth=24, num_channels=6, frame_length=256)
     rng = np.random.default_rng(51)
     t = np.arange(256)
@@ -326,7 +345,8 @@ def test_51_24bit_decode_on_card(cuda):
     assert codec.fallback_frames == 0
     np.testing.assert_array_equal(out, pcm)
     assert nums[7] == 100
-    cpu_out, _ = TorchCodec(cfg, chunk=12).decode_frames_ex(packets)
+    cpu_out, _ = TorchCodec(cfg, chunk=12,
+                            device="cpu").decode_frames_ex(packets)
     np.testing.assert_array_equal(out, cpu_out)
 
 
@@ -377,17 +397,18 @@ def test_rice_cost_kernel_on_card(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("order,dual", [(4, True), (8, True), (8, False)])
-def test_cost_kernel_per_lane_on_card(cuda, order, dual):
+@pytest.mark.parametrize("orders,dual", [((4,), True), ((4, 8), True),
+                                         ((8,), False)])
+def test_cost_kernel_per_lane_on_card(cuda, orders, dual):
     """The cost kernel with per-lane chanbits and num equals its plain
     version."""
-    rng = np.random.default_rng(200 + order)
+    rng = np.random.default_rng(200 + orders[-1])
     x, c0 = _small_inputs(rng, L=96, S=300)
     x[2, 150:] = 0
     cb, num = _lane_args(rng, 96, 300)
-    got = k_cost.pc_block_cost2(x.to(cuda), c0.to(cuda), order, cb.to(cuda),
+    got = k_cost.pc_block_cost2(x.to(cuda), c0.to(cuda), orders, cb.to(cuda),
                                 9, *RICE, dual=dual, num=num.to(cuda))
-    _same(got, k_cost.plain(x, c0, order, cb, 9, *RICE, dual=dual, num=num))
+    _same(got, k_cost.plain(x, c0, orders, cb, 9, *RICE, dual=dual, num=num))
 
 
 @pytest.mark.cuda
@@ -414,7 +435,7 @@ def test_51_encode_on_card(cuda, predict_legacy):
     """24-bit 5.1 with partial frames encodes on the card to the oracle's
     packets, through the cost kernel or through the standalone predictor
     and the Rice cost kernel (then the cost kernel never launches)."""
-    from alacjax.oracle import ALACEncoder
+    from alacjax_torch.oracle import ALACEncoder
     cfg = AlacConfig(bit_depth=24, num_channels=6, frame_length=256)
     rng = np.random.default_rng(52)
     t = np.arange(256)
@@ -435,3 +456,117 @@ def test_51_encode_on_card(cuda, predict_legacy):
                     else ["cost", "emit", "merge"]), kernels.LAUNCHES
     enc = ALACEncoder(cfg, independent_frames=True)
     assert packets == [enc.encode_packet(f[:, :n]) for f, n in zip(pcm, nums)]
+
+
+# ---------------------------------------------------------------------------
+# the cost and decode kernels at the main path's widths against their plain
+# versions: ragged (33) and full (4096) lane counts, short and full frames
+# ---------------------------------------------------------------------------
+SHAPES = [(33, 100), (33, 1024), (33, 4096), (4096, 100), (4096, 1024),
+          (4096, 4096)]
+N_DISTINCT = 16          # distinct forced-order packets, tiled to B
+
+
+def _music(rng, B, S, scale=9000):
+    """(B, S) int32 of sines with a little noise, as 16-bit audio."""
+    t = np.arange(S)
+    f = rng.uniform(0.002, 0.05, (B, 1))
+    x = (np.sin(t * f + rng.uniform(0, 6, (B, 1))) * scale
+         + rng.integers(-60, 61, (B, S)))
+    return np.clip(x, -32768, 32767).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,S", SHAPES)
+def test_cost_kernel_shapes_on_card(cuda, L, S):
+    """The cost kernel equals the multi-order plain version: the search
+    (orders 4 and 8, two machines) and the trial (order 8, one machine),
+    with per-lane chanbits and num."""
+    rng = np.random.default_rng(L + S)
+    x = torch.from_numpy(_music(rng, L, S)).to(cuda)
+    x[0] = 0
+    if L > 2:
+        x[2, S // 2:] = 0
+    c0 = init_coefs_batched(L).to(cuda)
+    cb, num = (t.to(cuda) for t in _lane_args(rng, L, S))
+    for orders, dual in (((4, 8), True), ((8,), False)):
+        want = k_cost.plain(x, c0, orders, cb, 9, *RICE, dual=dual, num=num)
+        _same(k_cost.pc_block_cost2(x, c0, orders, cb, 9, *RICE, dual=dual,
+                                    num=num), want)
+
+
+def _codec_lanes(cuda, rng, B, S):
+    """B mono 16-bit packets the codec encodes on the card, and their
+    decode-kernel lane fields read off the packets."""
+    cfg = AlacConfig(bit_depth=16, num_channels=1, frame_length=S)
+    pcm = _music(rng, B, S)[:, None, :]
+    packets = TorchCodec(cfg, chunk=B, device=cuda).encode_frames(pcm)
+    assert not any(_field(p, 22, 1) for p in packets)     # none escaped
+    param = [_field(p, 39, 16) for p in packets]
+    order = np.array([v & 31 for v in param], np.int32)
+    lane = dict(
+        order=order, mode=np.array([v >> 12 for v in param], np.int32),
+        den=np.array([(v >> 8) & 15 for v in param], np.int32),
+        pb=np.array([(cfg.pb * ((v >> 5) & 7)) // 4 for v in param],
+                    np.int32),
+        start=(55 + 16 * order).astype(np.int32))
+    coefs = np.zeros((B, 8), np.int32)
+    for b, p in enumerate(packets):
+        for k in range(order[b]):
+            c = _field(p, 55 + 16 * k, 16)
+            coefs[b, k] = c - (c >> 15 << 16)
+    lane["coefs"] = coefs
+    return packets, lane
+
+
+def _forced_lanes(rng, B, S, taps):
+    """N_DISTINCT mono 16-bit forced-order packets (chip_smoke.py ::
+    forced_order_packet) tiled to B, with orders above the next narrower
+    walk (9..16 at 16 taps, 17..30 at 30) and modes 0 and 15."""
+    import chip_smoke
+    lo = 9 if taps == 16 else 17
+    spec = [(16, 1, lo + i % (taps - lo + 1), 15 * (i // 2 % 2), S)
+            for i in range(min(B, N_DISTINCT))]
+    _, lane, packets = channel0_lanes(chip_smoke.forced_order_packet, spec,
+                                      S, int(rng.integers(1 << 16)))
+    reps = -(-B // len(spec))
+    lane = {k: np.concatenate([v] * reps)[:B] for k, v in lane.items()
+            if k not in ("num", "cb")}
+    return (packets * reps)[:B], lane
+
+
+def _stream_lanes(cuda, B, S, seed, taps):
+    """Decode-kernel inputs of B mono 16-bit packets, then damaged: every
+    third row has random bit flips past its start, every fifth lane
+    decodes only part of its samples, and the image is cut to the median
+    row length so the longer rows run off its end.  At 8 taps the packets
+    are the codec's own; at 16 and 30 taps, forced-order ones."""
+    rng = np.random.default_rng(seed)
+    packets, lane = (_codec_lanes(cuda, rng, B, S) if taps == 8
+                     else _forced_lanes(rng, B, S, taps))
+    lane["num"] = np.where(np.arange(B) % 5 == 2, rng.integers(1, S + 1, B),
+                           S).astype(np.int32)
+    lens = [len(p) for p in packets]
+    words = bitpack.bytes_to_words(packets, max(lens) // 4 + 3)
+    for b in range(1, B, 3):
+        n_bits = 8 * lens[b] - int(lane["start"][b])
+        for bit in int(lane["start"][b]) + rng.integers(0, n_bits, 3):
+            words[b, bit // 32] ^= np.uint32(1 << (31 - bit % 32))
+    w = np.ascontiguousarray(words[:, :int(np.median(lens)) // 4])
+    t = {k: torch.from_numpy(v).to(cuda) for k, v in lane.items()}
+    return torch.from_numpy(w.view(np.int32)).to(cuda), t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("taps", [8, 16, 30])
+@pytest.mark.parametrize("B,S", SHAPES)
+def test_decode_kernel_damaged_rows_on_card(cuda, B, S, taps):
+    """Each decode instance (8, 16 and 30 taps) equals the plain version
+    on samples, end bits and error flags, truncated and corrupt rows
+    included."""
+    words, t = _stream_lanes(cuda, B, S, B + S + taps, taps)
+    args = (words, t["start"], S, 16, MB0, t["pb"], KB0, WB, t["coefs"],
+            t["mode"], t["order"], t["den"])
+    want = k_decode.plain(*args, num=t["num"], taps=taps)
+    assert not want[2].all()
+    _same(k_decode.decode_channel(*args, num=t["num"], taps=taps), want)

@@ -25,7 +25,7 @@ from alacjax_torch.kernels import cost as k_cost
 from alacjax_torch.kernels import predict as k_predict
 from alacjax_torch.ops import predict as tpred
 from torch_encode_cases import (
-    S, jax_encode, make_config, make_frames, torch_encode,
+    S, jax_encode, make_config, make_frames, torch_config, torch_encode,
 )
 
 
@@ -163,9 +163,9 @@ def test_legacy_route_skips_the_cost_kernel(routes):
 
 
 def test_get_codec_keys_on_the_route():
-    cfg = make_config(16, 2)
-    a = get_codec(cfg, chunk=4, predict_legacy=True)
+    cfg = torch_config(make_config(16, 2))
+    a = get_codec(cfg, chunk=4, device="cpu", predict_legacy=True)
     assert a.predict_legacy
-    assert get_codec(cfg, chunk=4, predict_legacy=True) is a
-    assert get_codec(cfg, chunk=4) is not a
-    assert not get_codec(cfg, chunk=4).predict_legacy
+    assert get_codec(cfg, chunk=4, device="cpu", predict_legacy=True) is a
+    assert get_codec(cfg, chunk=4, device="cpu") is not a
+    assert not get_codec(cfg, chunk=4, device="cpu").predict_legacy

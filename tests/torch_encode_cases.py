@@ -3,7 +3,10 @@ tests/test_torch_predict_legacy.py: a batch of frames from a numpy seed,
 encoded once through alacjax_torch's TorchCodec (host API, keeping the
 device word image) and once through alacjax's _encode_packet_chunks
 compiled as one program, plus the scalar oracle's packets
-(independent frames)."""
+(independent frames).  The port's calls take the port's own AlacConfig
+(``torch_config``), alacjax's calls alacjax's."""
+
+import dataclasses
 
 import numpy as np
 import jax
@@ -13,6 +16,7 @@ from alacjax.codec import _encode_packet_chunks as jax_chunks
 from alacjax.oracle import ALACEncoder
 from alacjax.types import AlacConfig
 from alacjax_torch import TorchCodec
+from alacjax_torch.types import AlacConfig as TorchAlacConfig
 from conftest import gen_pcm
 
 S = 1024
@@ -26,6 +30,11 @@ class RecordingCodec(TorchCodec):
     def _encode(self, pcm, nums=None):
         self.last = super()._encode(pcm, nums)
         return self.last
+
+
+def torch_config(cfg: AlacConfig) -> TorchAlacConfig:
+    """The port's AlacConfig with the fields of alacjax's ``cfg``."""
+    return TorchAlacConfig(**dataclasses.asdict(cfg))
 
 
 def make_config(depth: int, nch: int, **kw) -> AlacConfig:
@@ -48,7 +57,8 @@ def make_frames(cfg, seed: int, kinds=KINDS, nums=None):
 def torch_encode(cfg, pcm, nums=None, predict_legacy: bool = False):
     """(packets, words (B, W) uint32, bits (B,)) through TorchCodec on the
     CPU: encode_frames for full frames, encode_frames_ex with nums."""
-    codec = RecordingCodec(cfg, chunk=len(pcm), predict_legacy=predict_legacy)
+    codec = RecordingCodec(torch_config(cfg), chunk=len(pcm), device="cpu",
+                           predict_legacy=predict_legacy)
     packets = (codec.encode_frames(pcm) if nums is None
                else codec.encode_frames_ex(pcm, nums))
     words, bits = codec.last
