@@ -56,14 +56,15 @@ __device__ __forceinline__ int clz32(unsigned x) { return __clz((int)x); }
 __device__ __forceinline__ int lg3a(unsigned x) { return 31 - clz32(x + 3u); }
 
 // min(n / m, 9) and n - m * that: the threshold count of rice.py
-// (m <= 16383, so 9 * m cannot wrap)
+// (m <= 16383, so 9 * m cannot wrap).  The nine compares are summed as a
+// tree: a running count compiles to a chain of nine dependent increments.
 __device__ __forceinline__ void divmod_capped(unsigned n, unsigned m, int& div,
                                               unsigned& mod) {
-    int d = 0;
-#pragma unroll
-    for (unsigned j = 1; j <= 9; ++j) d += (n >= j * m) ? 1 : 0;
-    div = d;
-    mod = n - m * (unsigned)d;
+    const int a = (int)(n >= m) + (int)(n >= 2u * m) + (int)(n >= 3u * m);
+    const int b = (int)(n >= 4u * m) + (int)(n >= 5u * m) + (int)(n >= 6u * m);
+    const int c = (int)(n >= 7u * m) + (int)(n >= 8u * m) + (int)(n >= 9u * m);
+    div = a + b + c;
+    mod = n - m * (unsigned)div;
 }
 
 // ag_enc.c :: dyn_code_32bit (non-escape codeword or the 9-ones prefix)
@@ -177,6 +178,53 @@ __device__ __forceinline__ int rice_step(RiceState& st, int x, int t, int S,
     st.in_run = continuing || trigger;
     st.run_len = continuing ? run_len_new : 0u;
     return run_bits + len;
+}
+
+// ---------------------------------------------------------------------------
+// (L, S) rows through shared-memory tiles: a tile holds TILE samples of
+// LANES lanes, [sample][lane] at a pitch of PITCH words, so a per-lane
+// walk down a tile and a row copy across it are both free of bank
+// conflicts.
+// ---------------------------------------------------------------------------
+constexpr int TILE = 32;              // samples per staged tile
+constexpr int LANES = 32;             // lanes per block
+constexpr int PITCH = LANES + 1;      // shared tile row pitch, in words
+
+__device__ __forceinline__ void cp_async4(int* dst, const int* src) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// every thread of the block: the phase's end
+__device__ __forceinline__ void phase_barrier(int nthreads) {
+    asm volatile("bar.sync 1, %0;\n" ::"r"(nthreads) : "memory");
+}
+
+// Threads tid = 0..nthreads-1 copy tile `tile` of lanes lane0.. of the
+// (L, S) array x into buf with cp.async (zeros past L and S): each warp
+// instruction moves 32 consecutive samples of one row (128 bytes).
+__device__ __forceinline__ void load_tile(int (*buf)[PITCH], const int* x,
+                                          int L, int S, int lane0, int tile,
+                                          int tid, int nthreads) {
+    const int t0 = tile * TILE;
+    for (int i = tid; i < LANES * TILE; i += nthreads) {
+        const int r = i / TILE, j = i % TILE;
+        const int lane = lane0 + r, t = t0 + j;
+        if (lane < L && t < S)
+            cp_async4(&buf[j][r], x + (size_t)lane * S + t);
+        else
+            buf[j][r] = 0;
+    }
+    cp_async_commit();
 }
 
 }  // namespace alac

@@ -39,9 +39,6 @@
 namespace alac {
 
 constexpr int MAX_ORDERS = 2;
-constexpr int TILE = 32;              // samples per staged tile
-constexpr int LANES = 32;             // lanes per block
-constexpr int PITCH = LANES + 1;      // shared tile row pitch, in words
 
 struct CostArgs {
     const int* x;          // (L, S)
@@ -176,42 +173,6 @@ struct Tiles {
     int r[MAX_ORDERS][2][TILE][PITCH];      // residual tiles per order
 };
 
-__device__ __forceinline__ void cp_async4(int* dst, const int* src) {
-    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-                 "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// every thread of the block: the phase's end
-__device__ __forceinline__ void phase_barrier(int nthreads) {
-    asm volatile("bar.sync 1, %0;\n" ::"r"(nthreads) : "memory");
-}
-
-// The block's threads copy tile `tile` of its lanes' x into buf: each
-// warp instruction moves 32 consecutive samples of one row (128 bytes).
-__device__ __forceinline__ void load_tile(int (*buf)[PITCH],
-                                          const CostArgs& a, int lane0,
-                                          int tile, int tid, int nthreads) {
-    const int t0 = tile * TILE;
-    for (int i = tid; i < LANES * TILE; i += nthreads) {
-        const int r = i / TILE, j = i % TILE;
-        const int lane = lane0 + r, t = t0 + j;
-        if (lane < a.L && t < a.S)
-            cp_async4(&buf[j][r], a.x + (size_t)lane * a.S + t);
-        else
-            buf[j][r] = 0;
-    }
-    cp_async_commit();
-}
-
 // One warp writes a residual tile back to (L, S): row by row, 32
 // consecutive samples per store instruction.
 __device__ __forceinline__ void store_tile(const int (*buf)[PITCH],
@@ -249,7 +210,8 @@ __device__ void tiled_warp(Tiles& sm, const CostArgs& a, int o, int role) {
 
     for (int p = 0; p <= n_tiles; ++p) {
         if (p + 1 < n_tiles)
-            load_tile(sm.x[(p + 1) & 1], a, lane0, p + 1, tid, nthreads);
+            load_tile(sm.x[(p + 1) & 1], a.x, a.L, S, lane0, p + 1, tid,
+                      nthreads);
         if (role == 0 && p < n_tiles) {
             const int (*xs)[PITCH] = sm.x[p & 1];
             int (*rs)[PITCH] = sm.r[o][p & 1];
@@ -284,7 +246,8 @@ __global__ void cost_tiled(const CostArgs a) {
     const int warp = threadIdx.x >> 5;
     const int per_order = DUAL ? 3 : 2;
     const int o = warp / per_order, role = warp % per_order;
-    load_tile(sm.x[0], a, blockIdx.x * LANES, 0, threadIdx.x, blockDim.x);
+    load_tile(sm.x[0], a.x, a.L, a.S, blockIdx.x * LANES, 0, threadIdx.x,
+              blockDim.x);
     cp_async_wait_all();
     phase_barrier(blockDim.x);
     if (select_opaque(o == 0, a.orders[0], a.orders[1]) == 4)

@@ -42,8 +42,6 @@
 namespace alac {
 
 constexpr int MAX_TAPS = 30;
-constexpr int TILE = 32;            // samples per output / ring tile
-constexpr int PITCH = TILE + 1;     // shared tile row pitch, in words
 
 struct DecodeArgs {
     const unsigned* words;          // (B, W)
@@ -278,11 +276,6 @@ struct Fir {
         return out;
     }
 };
-
-// both warps of the block: the phase's end
-__device__ __forceinline__ void phase_barrier(int nthreads) {
-    asm volatile("bar.sync 1, %0;\n" ::"r"(nthreads) : "memory");
-}
 
 // One warp stores a [lane][sample] tile of its 32 lanes to (B, S), row by
 // row: cnt consecutive samples of one lane per store instruction.

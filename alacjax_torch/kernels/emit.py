@@ -12,7 +12,7 @@ from ..ops import rice
 from . import LAUNCHES, expect, lane_vector, on_cuda, stream_ptr
 from ._build import check, lib
 
-MAX_SLOTS = 3       # csrc/emit.cu's per-step slot registers
+N_SLOTS = 2         # csrc/emit.cu's slots per step (emit_slots of any admitted cap)
 
 plain = rice.rice_encode_words          # the plain version, same signature
 
@@ -46,19 +46,18 @@ def rice_encode_words(res, bit_size, mb0: int, pb: int, kb: int, wb: int,
     bs = lane_vector(bit_size, L, dev, "bit_size")
     if num is not None:
         expect(num, "num", (L,))
-    n_slots = rice.emit_slots(bit_size_cap)
-    if not 1 <= n_slots <= MAX_SLOTS or bit_size_cap + MAX_PREFIX_32 > 32:
+    if (rice.emit_slots(bit_size_cap) != N_SLOTS or bit_size_cap < 1
+            or bit_size_cap + MAX_PREFIX_32 > 32):
         raise ValueError(f"emit kernel does not take bit_size={bit_size_cap}")
-    xt = res.t().contiguous()
-    words = torch.empty((L, n_slots * (S + 1)), dtype=torch.int32, device=dev)
+    words = torch.empty((L, N_SLOTS * (S + 1)), dtype=torch.int32, device=dev)
     keys = torch.empty_like(words)
     end, tv, tk = (torch.empty((L,), dtype=torch.int32, device=dev)
                    for _ in range(3))
     status = lib().alac_emit(
-        xt.data_ptr(), start_bits.data_ptr(), bs.data_ptr(),
+        res.data_ptr(), start_bits.data_ptr(), bs.data_ptr(),
         None if num is None else num.data_ptr(), words.data_ptr(),
         keys.data_ptr(), end.data_ptr(), tv.data_ptr(), tk.data_ptr(),
-        L, S, bit_size_cap, n_slots, mb0, pb, kb, wb, stream_ptr(res))
+        L, S, bit_size_cap, mb0, pb, kb, wb, stream_ptr(res))
     check(status, "alac_emit")
     LAUNCHES["emit"] += 1
     return words, keys, end, tv, tk

@@ -3,7 +3,8 @@
 ALAC keeps no weights: besides the shared ``AlacConfig``, the only state
 is the predictor coefficient tables.  These helpers turn the JAX side's
 numpy int32 tables into torch tensors on an explicit device, so both
-packages start from identical ``coefs0``.
+packages start from identical ``coefs0``.  The device is a required
+argument: carried state never lands on the CPU by default.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from .oracle import dp as oracle_dp
 from .types import DENSHIFT_DEFAULT, kALACMaxCoefs
 
 
-def coefs_from_numpy(coefs, device="cpu") -> torch.Tensor:
+def coefs_from_numpy(coefs, device) -> torch.Tensor:
     """(B, 16) int coefficient table -> int32 tensor on ``device``."""
     a = np.asarray(coefs)
     if a.ndim != 2 or a.shape[1] != kALACMaxCoefs:
@@ -24,14 +25,14 @@ def coefs_from_numpy(coefs, device="cpu") -> torch.Tensor:
     return torch.from_numpy(a.astype(np.int32)).to(device)
 
 
-def banks_from_numpy(banks, device="cpu") -> dict:
+def banks_from_numpy(banks, device) -> dict:
     """{channel: {order: (B, 16)}} numpy banks -> the same nesting of
     int32 tensors on ``device``."""
     return {ch: {od: coefs_from_numpy(tab, device) for od, tab in by.items()}
             for ch, by in banks.items()}
 
 
-def init_coefs_batched(B: int, device="cpu") -> torch.Tensor:
+def init_coefs_batched(B: int, device) -> torch.Tensor:
     """The encoder's fresh per-packet coefficients (dp_enc.c ::
     init_coefs at the default denshift), one row per lane."""
     row = np.asarray(oracle_dp.init_coefs(DENSHIFT_DEFAULT), dtype=np.int32)

@@ -18,10 +18,13 @@ Phases, each of which exits nonzero on failure:
      the phase-7 5.1 encode and of the standalone-predictor encodes
      (phase 8's stereo corpus and the 5.1 corpus) — a new signature's
      call at S = 4096 is compared on its first PREFIX samples (with num
-     clamped there), a causal prefix being a whole input of its own; the
-     results must be exactly equal; each call's bound is printed beside
-     (see ``work``: bytes at 3.35 TB/s or the operations the function
-     needs at the SMs' issue rate, whichever is longer);
+     clamped there), a causal prefix being a whole input of its own, and
+     on the whole input, whose time and bound are printed beside — and
+     one synthetic emit call whose lanes and steps end mid-tile
+     (RAGGED_EMIT); the results must be exactly equal; each call's bound
+     is printed beside (see ``work``: bytes at 3.35 TB/s or the
+     operations the function needs at the SMs' issue rate, whichever is
+     longer);
   4. the main path: TorchCodec encode_frames -> decode_frames_ex on the
      bench corpus (bench.py :: make_music, B=4096 frames of 16-bit
      stereo, S=4096): lossless, no frame flagged, the first 256 packets
@@ -79,6 +82,7 @@ N_DISTINCT_HI = 256      # distinct forced-order packets, tiled to B
 N_SMALL = 512            # frames of each small phase-7 encode
 PARTIAL_EVERY = 64       # every 64th 5.1 frame is a partial frame
 PREFIX = 1024            # samples of a new signature's phase-3 compare
+RAGGED_EMIT = (4129, 1001)   # (L, S) of phase 3's synthetic emit call
 REPLACES = {
     "cost": "alacjax/ops/pallas/cost_pallas.py:346",
     "emit": "alacjax/ops/pallas/emit_pallas.py:257",
@@ -514,41 +518,56 @@ def describe(name: str, args, kwargs) -> str:
     return " ".join(parts)
 
 
+def against_plain(call, int_ops_per_s: float):
+    """(kernel ms, plain ms, max_abs_err, bound ms, bytes ms, operations
+    ms, operations per lane-sample) of one call: its kernel timed on the
+    card, its plain version once with the work counters on."""
+    from alacjax_torch.ops import tutils
+    _, wrapper, plain, args, kwargs = call
+    got, ms = timed(lambda: wrapper(*args, **kwargs), reps=3)
+    tutils.WORK = {}
+    want, plain_ms = timed_once(lambda: plain(*args, **kwargs))
+    counts, tutils.WORK = tutils.WORK, None
+    err = max_abs_err(got if isinstance(got, tuple) else (got,),
+                      want if isinstance(want, tuple) else (want,))
+    del want
+    moved, ops, lane_samples = work(call, got, counts)
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / int_ops_per_s * 1e3
+    return (ms, plain_ms, err, max(bytes_ms, ops_ms), bytes_ms, ops_ms,
+            ops / max(lane_samples, 1))
+
+
 def compare_kernels(calls, rows, int_ops_per_s: float, cut: bool = False):
     """Phase 3: each recorded call through its kernel and through its
     plain version on the same inputs, on the card, beside the call's
     bound.  With ``cut`` a scan call longer than PREFIX samples is
-    compared on its first PREFIX (its kernel time on the whole input is
-    printed beside)."""
-    from alacjax_torch.ops import tutils
+    compared on its first PREFIX; the kernel on the whole input is then
+    held to its plain version too, and its time and bound are printed
+    beside."""
     for call in calls:
         whole = call
         call, was_cut = prefix(call, PREFIX) if cut else (call, False)
         name, wrapper, plain, args, kwargs = call
-        got, ms = timed(lambda: wrapper(*args, **kwargs), reps=3)
-        tutils.WORK = {}
-        want, plain_ms = timed_once(lambda: plain(*args, **kwargs))
-        counts, tutils.WORK = tutils.WORK, None
-        err = max_abs_err(got if isinstance(got, tuple) else (got,),
-                          want if isinstance(want, tuple) else (want,))
+        ms, plain_ms, err, bound_ms, bytes_ms, ops_ms, per = against_plain(
+            call, int_ops_per_s)
         row = rows[name]
-        moved, ops, lane_samples = work(call, got, counts)
-        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / int_ops_per_s * 1e3
         shape = "x".join(str(d) for d in args[0].shape)
         note = ""
         if was_cut:
-            _, full_ms = timed(lambda: whole[1](*whole[3], **whole[4]),
-                               reps=3)
+            full_ms, _, full_err, full_bound, full_bytes, full_ops, _ = \
+                against_plain(whole, int_ops_per_s)
+            err = max(err, full_err)
             note = (f"   [first {PREFIX} samples; kernel on the whole "
                     f"{'x'.join(map(str, whole[3][0].shape))}: "
-                    f"{full_ms:.4f} ms]")
+                    f"{full_ms:.4f} ms, bound {full_bound:.4f} ms (bytes "
+                    f"{full_bytes:.4f}, operations {full_ops:.4f}), "
+                    f"max_abs_err {full_err}]")
         print(f"  {name:9s} call {row['calls']} on {shape:12s} "
               f"{describe(name, args, kwargs)}: "
               f"kernel {ms:10.4f} ms   plain {plain_ms:12.3f} ms   "
-              f"bound {max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, "
-              f"operations {ops_ms:.4f}: "
-              f"{ops / max(lane_samples, 1):.1f} per lane-sample)   "
+              f"bound {bound_ms:.4f} ms (bytes {bytes_ms:.4f}, "
+              f"operations {ops_ms:.4f}: {per:.1f} per lane-sample)   "
               f"max_abs_err {err}{note}",
               flush=True)
         if err != 0:
@@ -557,9 +576,37 @@ def compare_kernels(calls, rows, int_ops_per_s: float, cut: bool = False):
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["ms"] += ms
         row["plain_ms"] += plain_ms
-        row["bound_ms"] += max(bytes_ms, ops_ms)
+        row["bound_ms"] += bound_ms
         row["bytes_ms"] += bytes_ms
         row["ops_ms"] += ops_ms
+
+
+def ragged_emit_call(seed: int = 5):
+    """A synthetic emit call whose lanes and steps end mid-tile (L, S =
+    RAGGED_EMIT; the kernel's tiles are 32 lanes by 32 steps): per-lane
+    bit sizes 17 and 21 under bit_size_cap=21, per-lane num, random
+    start phases, an all-zero lane, a lane of 21-bit escapes and lanes
+    rich in zero runs."""
+    import numpy as np
+    import torch
+    from alacjax_torch.kernels import emit
+    from alacjax_torch.types import KB0, MB0, PB0
+    L, S = RAGGED_EMIT
+    rng = np.random.default_rng(seed)
+    bs = np.where(np.arange(L) % 2 == 0, 17, 21)
+    x = rng.integers(-30000, 30000, (L, S))
+    x[:, ::3] *= rng.integers(0, 2, (L, 1))
+    x[::7] = rng.integers(-2, 3, (len(x[::7]), S))      # zero-run rich
+    x[0] = 0
+    x[1] = rng.integers(-(1 << 20), 1 << 20, S)          # escapes at 21 bits
+    bs[1] = 21
+    num = np.where(rng.random(L) < 0.5, S, rng.integers(1, S + 1, L))
+    start = rng.integers(0, 4000, L) * 32 + rng.integers(0, 32, L)
+    dev = [torch.from_numpy(v.astype(np.int32)).to("cuda")
+           for v in (x, bs, start, num)]
+    args = (dev[0], dev[1], MB0, PB0, KB0, (1 << KB0) - 1, dev[2])
+    return ("emit", emit.rice_encode_words, emit.plain, args,
+            dict(bit_size_cap=21, num=dev[3]))
 
 
 @contextlib.contextmanager
@@ -985,6 +1032,8 @@ def main() -> int:
         new_calls += one_per_signature(rec, seen)
         del rec
     compare_kernels(new_calls, rows, int_ops, cut=True)
+    # one emit call that ends mid-tile in lanes and in steps
+    compare_kernels([ragged_emit_call()], rows, int_ops)
     del new_calls, legacy, legacy51
     missing = [k for k, r in rows.items() if r["calls"] == 0]
     if missing:

@@ -186,12 +186,24 @@ def test_host_serializers_match_jax(rng):
 def test_state_tables():
     B = 3
     row = np.asarray(odp.init_coefs(9), dtype=np.int32)
-    c0 = state.init_coefs_batched(B)
+    c0 = state.init_coefs_batched(B, "cpu")
     assert c0.dtype == torch.int32 and tuple(c0.shape) == (B, 16)
     _eq(c0, np.tile(row, (B, 1)))
     banks = {0: {4: np.tile(row, (B, 1)), 8: np.zeros((B, 16), np.int64)}}
-    tb = state.banks_from_numpy(banks)
+    tb = state.banks_from_numpy(banks, "cpu")
     _eq(tb[0][4], banks[0][4])
     assert tb[0][8].dtype == torch.int32
     with pytest.raises(ValueError):
-        state.coefs_from_numpy(np.zeros((B, 8), np.int32))
+        state.coefs_from_numpy(np.zeros((B, 8), np.int32), "cpu")
+
+
+def test_state_tables_need_a_device():
+    """The carried state has no default device: a call without one raises
+    rather than put the tables on the CPU."""
+    row = np.zeros((2, 16), np.int32)
+    with pytest.raises(TypeError):
+        state.init_coefs_batched(2)
+    with pytest.raises(TypeError):
+        state.coefs_from_numpy(row)
+    with pytest.raises(TypeError):
+        state.banks_from_numpy({0: {4: row}})

@@ -33,6 +33,7 @@ from alacjax_torch.ops import bitpack, fused_decode, predict, rice
 from alacjax_torch.oracle.encoder import PB_FACTOR
 from alacjax_torch.state import init_coefs_batched
 from alacjax_torch.types import DENSHIFT_DEFAULT, AlacConfig, KB0, MB0, PB0
+from torch_emit_cases import CAP, TILE_EDGE_S, emit_lanes
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "alacjax_torch"
@@ -116,7 +117,7 @@ def channel0_lanes(build, spec, S: int, seed: int):
 def _small_inputs(rng, L=4, S=64):
     x = rng.integers(-3000, 3000, (L, S)).astype(np.int32)
     x[0] = 0
-    return torch.from_numpy(x), init_coefs_batched(L)
+    return torch.from_numpy(x), init_coefs_batched(L, "cpu")
 
 
 def test_cpu_tensors_take_the_plain_version(rng):
@@ -487,12 +488,28 @@ def test_cost_kernel_shapes_on_card(cuda, L, S):
     x[0] = 0
     if L > 2:
         x[2, S // 2:] = 0
-    c0 = init_coefs_batched(L).to(cuda)
+    c0 = init_coefs_batched(L, cuda)
     cb, num = (t.to(cuda) for t in _lane_args(rng, L, S))
     for orders, dual in (((4, 8), True), ((8,), False)):
         want = k_cost.plain(x, c0, orders, cb, 9, *RICE, dual=dual, num=num)
         _same(k_cost.pc_block_cost2(x, c0, orders, cb, 9, *RICE, dual=dual,
                                     num=num), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,S", [(33, s) for s in TILE_EDGE_S] + SHAPES)
+def test_emit_kernel_shapes_on_card(cuda, L, S):
+    """The emit kernel equals its plain version at the edges of its
+    32-step tiles and at the main path's widths, with per-lane bit sizes
+    (cap 21), sample counts and start phases."""
+    lanes = emit_lanes(np.random.default_rng(L + S), L, S)
+    x, bs, num, start = (torch.from_numpy(v).to(cuda) for v in lanes)
+    want = k_emit.plain(x, bs, *RICE, start, bit_size_cap=CAP, num=num)
+    kernels.reset_launches()
+    got = k_emit.rice_encode_words(x, bs, *RICE, start, bit_size_cap=CAP,
+                                   num=num)
+    assert kernels.LAUNCHES["emit"] == 1
+    _same(got, want)
 
 
 def _codec_lanes(cuda, rng, B, S):
