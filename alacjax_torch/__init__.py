@@ -9,10 +9,26 @@ ported yet.  Every scan runs in a hand-written CUDA kernel for Hopper
 (``alacjax_torch/csrc``) on CUDA tensors, and in its plain torch version
 (``alacjax_torch/ops``) on CPU tensors.  The package imports torch and
 never jax; alacjax/ stays the reference it is held to, bit for bit.
+
+Modules:
+  * codec       — TorchCodec / get_codec: the batched device codec and
+                  its host API (chunks pipelined one ahead), and the
+                  convert backend "torch"
+  * containers/ — WAV, CAF, M4A and PCM packing
+  * convert     — WAV <-> CAF/M4A file conversion ("oracle", "torch")
+  * batch       — convert_many: many files in shared device batches
+  * reader      — AlacReader: sample-accurate random access
+  * checkpoint  — resumable_encode / finalize: journaled encodes
+  * cli         — ``python -m alacjax_torch.cli`` (alacconvert)
+  * kernels/, csrc/, ops/ — the CUDA kernels, their wrappers and their
+                  plain torch versions
+  * types, cookie, bitbuffer, oracle/, native/ — copies of alacjax's
+                  host modules
 """
 
 from .types import AlacConfig
 
 from .codec import TorchCodec, get_codec
+from .reader import AlacReader
 
-__all__ = ["AlacConfig", "TorchCodec", "get_codec"]
+__all__ = ["AlacConfig", "AlacReader", "TorchCodec", "get_codec"]

@@ -28,8 +28,12 @@ channel decodes (decode kernel at 8, 16 or 30 taps; channel c+1 starts
 where channel c ends) -> unmix -> shift-byte re-insert -> escape select;
 the next element starts where this one ends.
 
-Each ``lax.cond`` of the reference is a Python ``if`` on a
-``.any().item()``.  Tensors live on the codec's device; the kernel
+Each ``lax.cond`` of the reference is a Python ``if`` on a flag read
+back from the device, one readback for all of the flags known at the
+same point: the encode's after the search (every lane escaped; per
+element, any lane escaped), the decode's after each element's parse
+(every lane and any lane escaped; with the first element, any lane
+partial).  Tensors live on the codec's device; the kernel
 wrappers launch CUDA kernels for CUDA tensors and run the plain torch
 versions for CPU tensors.  The encoder's word images travel as int32 bit
 patterns (empty keys -1), the small header images as int64.
@@ -542,9 +546,15 @@ def _encode_packet_chunks(pcm, config: AlacConfig, num_words: int,
         start = start + torch.where(e["use_escape"], esc_bits, comp_bits)
     total_c = start
 
+    # one readback: every lane of every element escaped, then per element
+    # whether any lane escaped
+    ue = torch.stack([e["use_escape"] for e in elems])
+    flags = torch.cat([ue.all().reshape(1), ue.any(dim=1)]).tolist()
+    any_comp = not flags[0]
+    for e, f in zip(elems, flags[1:]):
+        e["any_escape"] = f
+
     # ---- one stacked Rice emission over every channel ----
-    any_comp = not bool(torch.stack([e["use_escape"] for e in elems])
-                        .all().item())
     emitted = None
     if any_comp:
         feed, starts, cbs = [], [], []
@@ -611,7 +621,7 @@ def _assemble_mixed(elems, emitted, end_tv, end_tk, config, nums,
         vals = torch.cat(seg_v, dim=1)
         keys = torch.cat(seg_k, dim=1)
         ue = e["use_escape"]
-        if bool(ue.any().item()):
+        if e["any_escape"]:
             vals_e, keys_e, tv_e, tk_e = _esc_stream(e, depth, nums, S)
             T = max(vals.shape[1], vals_e.shape[1])
             vals = torch.where(ue[:, None], _pad_cols(vals_e, T, 0),
@@ -883,7 +893,7 @@ def decode_frames_device(words, config: AlacConfig, num_samples: int,
     err = torch.zeros((B,), dtype=torch.bool, device=dev)
     num = None
     out_ch = []
-    for tag, width in config.elements:
+    for ei, (tag, width) in enumerate(config.elements):
         is_cpe = width == 2
         p = _parse_element(w, bitpos, num, tag, width, config, S, max_ord,
                            fast_hdr)
@@ -891,8 +901,15 @@ def decode_frames_device(words, config: AlacConfig, num_samples: int,
         err = err | p["err"]
         chanbits = depth - 8 * bs + (1 if is_cpe else 0)
         bitpos = p["rice"]
+        # one readback per element; the packet's sample count is the
+        # first element's, so whether any lane is partial is known here
+        flags = [esc.all(), esc.any()] + ([(num < S).any()] if ei == 0
+                                          else [])
+        all_esc, any_esc, *first = torch.stack(flags).tolist()
+        if first:
+            any_partial = first[0]
 
-        if bool(esc.all().item()):
+        if all_esc:
             dec = [torch.zeros((B, S), dtype=I32, device=dev)] * width
         else:
             # chained channel scans: channel c+1 starts where channel c ends
@@ -917,7 +934,7 @@ def decode_frames_device(words, config: AlacConfig, num_samples: int,
                          for r, sh in zip(recon, shifts)]
             dec = recon
 
-        if bool(esc.any().item()):
+        if any_esc:
             raws = (_unescape_fast(w, depth, width, S, p["partial"])
                     if fast_hdr else
                     _unescape_window(words_i32, p["pos_esc"], depth, width, S))
@@ -927,7 +944,7 @@ def decode_frames_device(words, config: AlacConfig, num_samples: int,
         bitpos = torch.where(esc, p["pos_esc"] + width * depth * num, bitpos)
 
     pcm = torch.stack(out_ch, dim=1)
-    if bool((num < S).any().item()):
+    if any_partial:
         pcm = torch.where(iota1(S, device=dev)[None, None, :]
                           < num[:, None, None], pcm, 0)
     return pcm.to(I32), err, num.to(I32)
@@ -987,30 +1004,66 @@ class TorchCodec:
         must be zero (callers pad)."""
         return self._encode_host(pcm, np.asarray(nums, dtype=np.int32))
 
+    def _to_device(self, block, rows: int, fill: int = 0):
+        """A host array -> an int32 tensor of ``rows`` leading rows on the
+        codec's device, rows past the array's set to ``fill``.  On the
+        card the rows are staged in pinned memory and copied with
+        non_blocking=True, so the host goes on while the copy waits for
+        the work queued before it."""
+        n = block.shape[0]
+        pinned = self.device.type == "cuda"
+        host = torch.empty((rows,) + block.shape[1:], dtype=torch.int32,
+                           pin_memory=pinned)
+        h = host.numpy()
+        np.copyto(h[:n], block, casting="unsafe")
+        h[n:] = fill
+        return host.to(self.device, non_blocking=True) if pinned else host
+
+    def _to_host(self, *tensors):
+        """Queue copies of device tensors to the host: on the card into
+        pinned buffers with non_blocking=True and an event recorded after
+        them, so they run right after the work that made them; on the CPU
+        the tensors themselves.  ``_ready`` waits for them."""
+        if self.device.type != "cuda":
+            return tensors, None
+        host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                     .copy_(t, non_blocking=True) for t in tensors)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return host, event
+
+    @staticmethod
+    def _ready(host, event) -> list[np.ndarray]:
+        """The numpy views of ``_to_host``'s buffers, once copied."""
+        if event is not None:
+            event.synchronize()
+        return [t.numpy() for t in host]
+
     def _encode_host(self, pcm, nums):
-        """Chunks of ``chunk`` frames through the device encode; a short
-        last chunk is padded with silent full frames."""
+        """Chunks of ``chunk`` frames through the device encode, one chunk
+        of look-ahead as in alacjax's JaxCodec: chunk k+1's copy in, its
+        device work and its copy out are queued before chunk k's words
+        are serialized, so words_to_bytes runs while the card works.  A
+        short last chunk is padded with silent full frames."""
         S = self.config.frame_length
         nf = pcm.shape[0]
         packets = []
+        pending = None      # (host words and bits, event) of chunk k
         for off in range(0, nf, self.chunk):
             block = np.asarray(pcm[off:off + self.chunk])
             n = block.shape[0]
-            pad = self.chunk - n
-            if pad:
-                block = np.concatenate(
-                    [block, np.zeros((pad,) + block.shape[1:],
-                                     dtype=block.dtype)], axis=0)
-            x = torch.from_numpy(block.astype(np.int32)).to(self.device)
+            x = self._to_device(block, self.chunk)
             if nums is None:
                 words, bits = self._encode(x)
             else:
-                nm = np.concatenate([nums[off:off + n],
-                                     np.full((pad,), S, np.int32)])
                 words, bits = self._encode(
-                    x, torch.from_numpy(nm).to(self.device))
-            packets.extend(bitpack.words_to_bytes(
-                words[:n].cpu().numpy(), bits[:n].cpu().numpy()))
+                    x, self._to_device(nums[off:off + n], self.chunk, S))
+            cur = self._to_host(words[:n], bits[:n])
+            if pending is not None:
+                packets.extend(bitpack.words_to_bytes(*self._ready(*pending)))
+            pending = cur
+        if pending is not None:
+            packets.extend(bitpack.words_to_bytes(*self._ready(*pending)))
         return packets
 
     def decode_frames_ex(self, packets: list[bytes]
@@ -1019,24 +1072,37 @@ class TorchCodec:
         counts).  When many lanes of a chunk are flagged (the usual sign
         of a legal stream of order above 8), the chunk decodes again at
         16 and then 30 taps; lanes still flagged (frames outside the
-        device grammar) decode on the scalar oracle."""
+        device grammar) decode on the scalar oracle.  Pipelined as
+        alacjax's JaxCodec: chunk k+1's word images, copy in, device work
+        and copy out are queued before chunk k's results are read back
+        and checked (one chunk of look-ahead)."""
         cfg = self.config
         S = cfg.frame_length
         nf = len(packets)
         out = np.zeros((nf, cfg.num_channels, S), dtype=np.int64)
         nums = np.full((nf,), S, dtype=np.int64)
-        for off in range(0, nf, self.chunk):
+
+        def dispatch(off):
             blk = packets[off:off + self.chunk]
             n = len(blk)
-            padded = list(blk) + [b""] * (self.chunk - n)
-            wh = bitpack.bytes_to_words(padded, self.num_words)
-            wdev = torch.from_numpy(wh.view(np.int32)).to(self.device)
+            wh = bitpack.bytes_to_words(blk, self.num_words)
+            wdev = self._to_device(wh.view(np.int32), self.chunk)
             pcm, err, num = self._decode(wdev)
-            out[off:off + n] = pcm[:n].cpu().numpy()
-            nums[off:off + n] = num[:n].cpu().numpy()
-            err = err[:n].cpu().numpy()
+            return off, n, blk, wdev, self._to_host(pcm[:n], err[:n],
+                                                    num[:n])
+
+        offs = list(range(0, nf, self.chunk))
+        pending = dispatch(offs[0]) if offs else None
+        for i in range(len(offs)):
+            off, n, blk, wdev, copies = pending
+            pending = dispatch(offs[i + 1]) if i + 1 < len(offs) else None
+            pcm, err, num = self._ready(*copies)
+            out[off:off + n] = pcm
+            nums[off:off + n] = num
+            err = err.copy()
             # the retry rule and threshold of alacjax's JaxCodec: a few
-            # flagged lanes (corruption) go straight to the oracle
+            # flagged lanes (corruption) go straight to the oracle; chunk
+            # k's words are still on the card for the retry
             for retry_taps in fused_decode.LADDER_TAPS:
                 if err.any() and err.sum() * 4 >= n and n >= 64:
                     pcm_r, err_r, num_r = self._decode(wdev, taps=retry_taps)
@@ -1075,3 +1141,75 @@ def get_codec(config: AlacConfig, chunk: int = DEFAULT_CHUNK,
         _CODEC_CACHE[key] = TorchCodec(config, chunk, device=device,
                                        predict_legacy=predict_legacy)
     return _CODEC_CACHE[key]
+
+
+def _codec_key_config(config: AlacConfig) -> AlacConfig:
+    """Normalize cookie-only fields before keying the codec cache:
+    sample_rate / maxFrameBytes / avgBitRate never enter the packet
+    math, so files differing only in them share ONE codec."""
+    import dataclasses
+    return dataclasses.replace(config, sample_rate=44100,
+                               max_frame_bytes=0, avg_bit_rate=0)
+
+
+def _torch_encode_stream(config: AlacConfig, pcm: np.ndarray,
+                         device="cuda") -> list[bytes]:
+    """convert.py backend: planar (C, N) -> packets, full frames AND the
+    partial tail in one device batch (per-lane nums; reference:
+    ALACEncoder.cpp Encode partial-frame path)."""
+    config = _codec_key_config(config)
+    S = config.frame_length
+    C = pcm.shape[0]
+    N = pcm.shape[1]
+    nf = N // S
+    rem = N % S
+    n_pk = nf + (1 if rem else 0)
+    if not n_pk:
+        return []
+    frames = np.zeros((n_pk, C, S), dtype=pcm.dtype)
+    if nf:
+        frames[:nf] = np.transpose(
+            pcm[:, : nf * S].reshape(C, nf, S), (1, 0, 2))
+    nums = np.full((n_pk,), S, dtype=np.int32)
+    if rem:
+        frames[nf, :, :rem] = pcm[:, nf * S:]
+        nums[nf] = rem
+    codec = get_codec(config, device=device)
+    if rem:
+        return codec.encode_frames_ex(frames, nums)
+    return codec.encode_frames(frames)
+
+
+def _torch_decode_stream(config: AlacConfig, packets, num_valid_frames: int,
+                         device="cuda") -> np.ndarray:
+    config = _codec_key_config(config)
+    S = config.frame_length
+    n_full = num_valid_frames // S
+    n_full = min(n_full, len(packets))
+    rem = num_valid_frames - n_full * S
+    if rem and len(packets) <= n_full:
+        raise AlacParamError("missing packets for trailing samples")
+    n_pk = n_full + (1 if rem else 0)
+    out = np.zeros((config.num_channels, num_valid_frames), dtype=np.int64)
+    if not n_pk:
+        return out
+    # full frames AND the partial tail decode in one device batch
+    # (per-lane num mask; reference: ALACDecoder.cpp partialFrame)
+    pcm, nums = get_codec(config, device=device).decode_frames_ex(
+        list(packets[:n_pk]))
+    if (nums[:n_full] != S).any():
+        raise AlacParamError("unexpected partial frame")
+    if rem and nums[n_full] != rem:
+        raise AlacParamError(
+            f"tail packet has {int(nums[n_full])} samples, expected {rem}")
+    flat = np.transpose(pcm[:n_full], (1, 0, 2)).reshape(
+        config.num_channels, n_full * S)
+    out[:, : n_full * S] = flat
+    if rem:
+        out[:, n_full * S:] = pcm[n_full, :, :rem]
+    return out
+
+
+from . import convert as _convert  # noqa: E402  (registration at import)
+
+_convert.register_backend("torch", _torch_encode_stream, _torch_decode_stream)

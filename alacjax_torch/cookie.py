@@ -1,5 +1,5 @@
 """Magic-cookie serialization — the encoder↔decoder configuration contract:
-the port's copy of alacjax/cookie.py, as far as its oracle needs it.
+the port's copy of alacjax/cookie.py.
 
 Rebuild of the reference's cookie handling (ALACEncoder.cpp ::
 GetMagicCookie/GetConfig and ALACDecoder.cpp :: Init; layout per
@@ -52,6 +52,10 @@ def serialize_cookie(config: AlacConfig) -> bytes:
         config.channel_layout_tag, 0, 0,
     )
     return core + atom
+
+
+def cookie_size(num_channels: int) -> int:
+    return CONFIG_SIZE if num_channels <= 2 else CONFIG_SIZE + CHANNEL_ATOM_SIZE
 
 
 def parse_cookie(cookie: bytes) -> AlacConfig:

@@ -6,7 +6,9 @@ channel decode at 8 taps, and at 16/30 taps as ``decode_hi``), predict
 (the standalone predictor) and rice_cost (its second, cost-only pass).
 A wrapper checks its inputs, allocates its outputs, and for CUDA tensors
 launches its kernel (or raises — there is no fallback); for CPU tensors
-it runs the plain torch version from ``alacjax_torch.ops``.
+it runs the plain torch version from ``alacjax_torch.ops``.  Every
+launch goes through ``launch``, which holds a device guard for the
+input's card, so a tensor on ``cuda:1`` runs on card 1.
 ``LAUNCHES`` counts kernel launches, one key per kernel, so a run can
 show that a path went through the kernels.
 """
@@ -14,6 +16,8 @@ show that a path went through the kernels.
 from __future__ import annotations
 
 import torch
+
+from . import _build
 
 LAUNCHES = {"cost": 0, "emit": 0, "merge": 0, "decode": 0, "decode_hi": 0,
             "predict": 0, "rice_cost": 0}
@@ -60,3 +64,12 @@ def lane_vector(v, L: int, device, name: str):
 
 def stream_ptr(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch(name: str, like, *args) -> None:
+    """Call the C entry point ``name`` of the kernel library with
+    ``args`` and the current stream of ``like``'s device, under a device
+    guard for that device; raise unless it returns 0."""
+    with torch.cuda.device(like.device):
+        status = getattr(_build.lib(), name)(*args, stream_ptr(like))
+    _build.check(status, name)

@@ -9,8 +9,7 @@ import torch
 
 from ..ops import predict
 from ..types import kALACMaxCoefs
-from . import LAUNCHES, expect, lane_vector, on_cuda, stream_ptr
-from ._build import check, lib
+from . import LAUNCHES, expect, lane_vector, launch, on_cuda
 
 ORDERS = (4, 8)     # the orders csrc/cost.cu instantiates
 MAX_ORDERS = 2      # orders one launch takes
@@ -63,12 +62,10 @@ def pc_block_cost2(x, coefs0, orders, chanbits, denshift: int, mb0: int,
     cost1 = torch.empty((n, L), dtype=torch.int32, device=dev)
     cost2 = torch.zeros((n, L), dtype=torch.int32, device=dev)
     coefs = torch.empty((n, L, kALACMaxCoefs), dtype=torch.int32, device=dev)
-    status = lib().alac_cost(
-        x.data_ptr(), coefs0.data_ptr(), cb.data_ptr(),
-        None if num is None else num.data_ptr(), res.data_ptr(),
-        cost1.data_ptr(), cost2.data_ptr(), coefs.data_ptr(), L, S,
-        orders[0], orders[-1], n, int(dual), denshift, mb0, pb, kb, wb,
-        stream_ptr(x))
-    check(status, "alac_cost")
+    launch("alac_cost", x,
+           x.data_ptr(), coefs0.data_ptr(), cb.data_ptr(),
+           None if num is None else num.data_ptr(), res.data_ptr(),
+           cost1.data_ptr(), cost2.data_ptr(), coefs.data_ptr(), L, S,
+           orders[0], orders[-1], n, int(dual), denshift, mb0, pb, kb, wb)
     LAUNCHES["cost"] += 1
     return res, cost1, cost2, coefs

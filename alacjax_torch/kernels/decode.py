@@ -11,8 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import fused_decode
-from . import LAUNCHES, expect, on_cuda, stream_ptr
-from ._build import check, lib
+from . import LAUNCHES, expect, launch, on_cuda
 
 plain = fused_decode.decode_channel     # the plain version, same signature
 KERNEL_TAPS = (fused_decode.TAPS,) + fused_decode.LADDER_TAPS
@@ -63,13 +62,12 @@ def decode_channel(words, start_bits, num_samples: int, chanbits,
     samples = torch.empty((B, S), dtype=torch.int32, device=dev)
     end = torch.empty((B,), dtype=torch.int32, device=dev)
     err = torch.empty((B,), dtype=torch.int32, device=dev)
-    status = lib().alac_decode(
-        words.data_ptr(), start_bits.data_ptr(), cb_lane.data_ptr(),
-        pb.data_ptr(), coefs0.data_ptr(), coefs0.shape[1], mode.data_ptr(),
-        numactive.data_ptr(), denshift.data_ptr(),
-        None if num is None else num.data_ptr(), samples.data_ptr(),
-        end.data_ptr(), err.data_ptr(), B, W, S, taps, chanbits_max, mb0,
-        kb, wb, stream_ptr(words))
-    check(status, "alac_decode")
+    launch("alac_decode", words,
+           words.data_ptr(), start_bits.data_ptr(), cb_lane.data_ptr(),
+           pb.data_ptr(), coefs0.data_ptr(), coefs0.shape[1],
+           mode.data_ptr(), numactive.data_ptr(), denshift.data_ptr(),
+           None if num is None else num.data_ptr(), samples.data_ptr(),
+           end.data_ptr(), err.data_ptr(), B, W, S, taps, chanbits_max, mb0,
+           kb, wb)
     LAUNCHES[counter(taps)] += 1
     return samples, end, err != 0

@@ -9,8 +9,7 @@ import torch
 from ..types import MAX_PREFIX_32
 
 from ..ops import rice
-from . import LAUNCHES, expect, lane_vector, on_cuda, stream_ptr
-from ._build import check, lib
+from . import LAUNCHES, expect, lane_vector, launch, on_cuda
 
 N_SLOTS = 2         # csrc/emit.cu's slots per step (emit_slots of any admitted cap)
 
@@ -53,11 +52,10 @@ def rice_encode_words(res, bit_size, mb0: int, pb: int, kb: int, wb: int,
     keys = torch.empty_like(words)
     end, tv, tk = (torch.empty((L,), dtype=torch.int32, device=dev)
                    for _ in range(3))
-    status = lib().alac_emit(
-        res.data_ptr(), start_bits.data_ptr(), bs.data_ptr(),
-        None if num is None else num.data_ptr(), words.data_ptr(),
-        keys.data_ptr(), end.data_ptr(), tv.data_ptr(), tk.data_ptr(),
-        L, S, bit_size_cap, mb0, pb, kb, wb, stream_ptr(res))
-    check(status, "alac_emit")
+    launch("alac_emit", res,
+           res.data_ptr(), start_bits.data_ptr(), bs.data_ptr(),
+           None if num is None else num.data_ptr(), words.data_ptr(),
+           keys.data_ptr(), end.data_ptr(), tv.data_ptr(), tk.data_ptr(),
+           L, S, bit_size_cap, mb0, pb, kb, wb)
     LAUNCHES["emit"] += 1
     return words, keys, end, tv, tk

@@ -8,8 +8,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import bitpack
-from . import LAUNCHES, expect, on_cuda, stream_ptr
-from ._build import check, lib
+from . import LAUNCHES, expect, launch, on_cuda
 
 plain = bitpack.merge_sorted_chunks     # the plain version, same signature
 
@@ -26,10 +25,8 @@ def merge_sorted_chunks(vals, keys, tail_vals, tail_keys, num_words: int):
     expect(tail_vals, "tail_vals", (B, n_t))
     expect(tail_keys, "tail_keys", (B, n_t))
     out = torch.zeros((B, num_words), dtype=torch.int32, device=vals.device)
-    status = lib().alac_merge(
-        vals.data_ptr(), keys.data_ptr(), tail_vals.data_ptr(),
-        tail_keys.data_ptr(), out.data_ptr(), B, T, n_t, num_words,
-        stream_ptr(vals))
-    check(status, "alac_merge")
+    launch("alac_merge", vals,
+           vals.data_ptr(), keys.data_ptr(), tail_vals.data_ptr(),
+           tail_keys.data_ptr(), out.data_ptr(), B, T, n_t, num_words)
     LAUNCHES["merge"] += 1
     return out

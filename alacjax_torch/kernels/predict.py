@@ -14,8 +14,7 @@ import torch
 from ..types import kALACMaxCoefs
 
 from ..ops import predict, rice
-from . import LAUNCHES, expect, lane_vector, on_cuda, stream_ptr
-from ._build import check, lib
+from . import LAUNCHES, expect, lane_vector, launch, on_cuda
 
 ORDERS = tuple(range(1, kALACMaxCoefs + 1))   # csrc/predict.cu's instances
 
@@ -42,10 +41,9 @@ def pc_block(x, coefs0, order: int, chanbits, denshift: int):
     xt = x.t().contiguous()                 # (S, L): a warp's loads coalesce
     res_t = torch.empty((S, L), dtype=torch.int32, device=dev)
     coefs = torch.empty((L, kALACMaxCoefs), dtype=torch.int32, device=dev)
-    status = lib().alac_predict(
-        xt.data_ptr(), coefs0.data_ptr(), cb.data_ptr(), res_t.data_ptr(),
-        coefs.data_ptr(), L, S, order, denshift, stream_ptr(x))
-    check(status, "alac_predict")
+    launch("alac_predict", x,
+           xt.data_ptr(), coefs0.data_ptr(), cb.data_ptr(), res_t.data_ptr(),
+           coefs.data_ptr(), L, S, order, denshift)
     LAUNCHES["predict"] += 1
     return res_t.t().contiguous(), coefs
 
@@ -70,9 +68,9 @@ def rice_cost(res, bit_size, mb0: int, pb: int, kb: int, wb: int,
         expect(num, "num", (L,))
     xt = res.t().contiguous()
     cost = torch.empty((L,), dtype=torch.int32, device=dev)
-    status = lib().alac_rice_cost(
-        xt.data_ptr(), cb.data_ptr(), None if num is None else num.data_ptr(),
-        cost.data_ptr(), L, S, mb0, pb, kb, wb, stream_ptr(res))
-    check(status, "alac_rice_cost")
+    launch("alac_rice_cost", res,
+           xt.data_ptr(), cb.data_ptr(),
+           None if num is None else num.data_ptr(), cost.data_ptr(), L, S,
+           mb0, pb, kb, wb)
     LAUNCHES["rice_cost"] += 1
     return cost

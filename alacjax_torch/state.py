@@ -34,6 +34,11 @@ def banks_from_numpy(banks, device) -> dict:
 
 def init_coefs_batched(B: int, device) -> torch.Tensor:
     """The encoder's fresh per-packet coefficients (dp_enc.c ::
-    init_coefs at the default denshift), one row per lane."""
-    row = np.asarray(oracle_dp.init_coefs(DENSHIFT_DEFAULT), dtype=np.int32)
-    return coefs_from_numpy(np.tile(row, (B, 1)), device)
+    init_coefs at the default denshift), one row per lane.  Built with
+    fills on ``device``: no host-to-device copy, so the encode does not
+    wait here for the work queued before it."""
+    out = torch.zeros((B, kALACMaxCoefs), dtype=torch.int32, device=device)
+    for j, v in enumerate(oracle_dp.init_coefs(DENSHIFT_DEFAULT)):
+        if v:
+            out[:, j] = int(v)
+    return out

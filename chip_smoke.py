@@ -51,8 +51,25 @@ Phases, each of which exits nonzero on failure:
   8. the standalone-predictor route: phase 4's corpus encoded with
      predict_legacy=True: every packet equal to phase 4's, the predict
      and rice_cost kernels launched and the cost kernel never; its
-     device-resident encode seconds beside phase 4's.
-Each path (phases 4-8) runs with the launch counts set to 0 just before
+     device-resident encode seconds beside phase 4's;
+  9. the converter: an album written as WAV files to a temporary
+     directory (ALBUM_TRACKS stereo-16 44.1 kHz tracks of TRACK_SECONDS
+     from make_music, and one 24-bit 5.1 48 kHz track of SURROUND_SECONDS
+     from phase 5's signal), then ``alacjax_torch.cli.main``: the album
+     batch-encoded to M4A with --check (one batched device stream at the
+     default chunk), the 5.1 track to CAF with --check, and every M4A
+     and the CAF batch-decoded back to WAV.  Every decoded WAV's PCM
+     equals its source; track 0 and the 5.1 track, every packet, and the
+     first N_ALBUM_NATIVE packets of the other tracks, equal the native
+     C++ encoder's; an AlacReader range read through the torch backend
+     equals the source; no frame reaches the oracle.  Each step's wall
+     seconds and frames/s, and the host time split (WAV parse and
+     unpack, host-to-device copies, device calls, readback waits,
+     words_to_bytes / bytes_to_words, container reading and writing),
+     for the pipelined host API and, on the same corpus, for the
+     unpipelined loop it replaced (``unpipelined_encode_host`` /
+     ``unpipelined_decode_frames_ex``, over the same device calls).
+Each path (phases 4-9) runs with the launch counts set to 0 just before
 it and read just after; a kernel of the path that was not launched
 fails the run.  The line before the last is a JSON object of per-kernel
 results ("launches" sums the paths' counts; "ms", "plain_ms" and
@@ -81,6 +98,10 @@ N_DISTINCT_51 = 512      # distinct 24-bit 5.1 frames, tiled to B
 N_DISTINCT_HI = 256      # distinct forced-order packets, tiled to B
 N_SMALL = 512            # frames of each small phase-7 encode
 PARTIAL_EVERY = 64       # every 64th 5.1 frame is a partial frame
+ALBUM_TRACKS = 8         # phase 9: stereo-16 44.1 kHz tracks ...
+TRACK_SECONDS = 180      # ... of 180 s (1,937 full frames + 4,048)
+SURROUND_SECONDS = 60    # and one 24-bit 5.1 48 kHz track (703 + 512)
+N_ALBUM_NATIVE = 64      # packets of tracks 1.. held to the native codec
 PREFIX = 1024            # samples of a new signature's phase-3 compare
 RAGGED_EMIT = (4129, 1001)   # (L, S) of phase 3's synthetic emit call
 REPLACES = {
@@ -114,6 +135,7 @@ PATH_KERNELS = {         # the kernels each path must launch
     "phase 6": ("decode", "decode_hi"),
     "phase 7": ("cost", "emit", "merge"),
     "phase 8": ("predict", "rice_cost", "emit", "merge"),
+    "phase 9": ("cost", "emit", "merge", "decode"),
 }
 HBM_BYTES_PER_S = 3.35e12    # one H100 SXM's device memory rate
 # Lane operations one Hopper SM issues per clock: four schedulers, each
@@ -700,12 +722,8 @@ def make_51(cfg):
     with zeros past each frame's length, packets, nums)."""
     import numpy as np
     from alacjax_torch import native
-    from bench import make_music
     n = N_DISTINCT_51
-    hi = np.concatenate([make_music(n, S, seed=s) for s in (7, 8, 9)], axis=1)
-    rng = np.random.default_rng(24)
-    x = (hi.astype(np.int32) << 8) | rng.integers(0, 256, hi.shape,
-                                                  dtype=np.int32)
+    x = music_51(n)
     nums = np.full((n,), S)
     nums[PARTIAL_EVERY - 1::PARTIAL_EVERY] = 1000 + 37 * np.arange(
         n // PARTIAL_EVERY)
@@ -715,6 +733,18 @@ def make_51(cfg):
     packets = [enc.encode_packet(x[i][:, :nums[i]]) for i in range(n)]
     reps = B // n
     return np.tile(x, (reps, 1, 1)), packets * reps, np.tile(nums, reps)
+
+
+def music_51(n: int):
+    """(n, 6, S) int32 frames of 24-bit 5.1: three stereo renderings of
+    bench.py make_music (noise seeds 7, 8, 9) up 8 bits with a random low
+    byte."""
+    import numpy as np
+    from bench import make_music
+    hi = np.concatenate([make_music(n, S, seed=s) for s in (7, 8, 9)], axis=1)
+    rng = np.random.default_rng(24)
+    return (hi.astype(np.int32) << 8) | rng.integers(0, 256, hi.shape,
+                                                     dtype=np.int32)
 
 
 def layouts_and_depths(codec, pcm, packets, nums, counts):
@@ -921,6 +951,399 @@ def predict_legacy_route(cfg, pcm, counts, main):
     return codec, x
 
 
+def pageable_to_device(t, device):
+    """The unpipelined loop's copy in: a pageable, blocking ``.to``."""
+    return t.to(device)
+
+
+def blocking_readback(t):
+    """The unpipelined loop's copy out: a blocking ``.cpu()``."""
+    return t.cpu().numpy()
+
+
+def unpipelined_encode_host(self, pcm, nums):
+    """TorchCodec._encode_host before the pipelining, for phase 9's
+    comparison: each chunk to its end (a pageable copy in, the device
+    encode, a blocking copy out, then words_to_bytes)."""
+    import numpy as np
+    import torch
+    from alacjax_torch.ops import bitpack
+    S = self.config.frame_length
+    nf = pcm.shape[0]
+    packets = []
+    for off in range(0, nf, self.chunk):
+        block = np.asarray(pcm[off:off + self.chunk])
+        n = block.shape[0]
+        pad = self.chunk - n
+        if pad:
+            block = np.concatenate(
+                [block, np.zeros((pad,) + block.shape[1:],
+                                 dtype=block.dtype)], axis=0)
+        x = pageable_to_device(torch.from_numpy(block.astype(np.int32)),
+                               self.device)
+        if nums is None:
+            words, bits = self._encode(x)
+        else:
+            nm = np.concatenate([nums[off:off + n],
+                                 np.full((pad,), S, np.int32)])
+            words, bits = self._encode(
+                x, pageable_to_device(torch.from_numpy(nm), self.device))
+        packets.extend(bitpack.words_to_bytes(
+            blocking_readback(words[:n]), blocking_readback(bits[:n])))
+    return packets
+
+
+def unpipelined_decode_frames_ex(self, packets):
+    """TorchCodec.decode_frames_ex before the pipelining, for phase 9's
+    comparison: each chunk to its end, then the next."""
+    import numpy as np
+    import torch
+    from alacjax_torch.codec import OracleDecoder
+    from alacjax_torch.ops import bitpack, fused_decode
+    cfg = self.config
+    S = cfg.frame_length
+    nf = len(packets)
+    out = np.zeros((nf, cfg.num_channels, S), dtype=np.int64)
+    nums = np.full((nf,), S, dtype=np.int64)
+    for off in range(0, nf, self.chunk):
+        blk = packets[off:off + self.chunk]
+        n = len(blk)
+        padded = list(blk) + [b""] * (self.chunk - n)
+        wh = bitpack.bytes_to_words(padded, self.num_words)
+        wdev = pageable_to_device(torch.from_numpy(wh.view(np.int32)),
+                                  self.device)
+        pcm, err, num = self._decode(wdev)
+        out[off:off + n] = blocking_readback(pcm[:n])
+        nums[off:off + n] = blocking_readback(num[:n])
+        err = blocking_readback(err[:n])
+        for retry_taps in fused_decode.LADDER_TAPS:
+            if err.any() and err.sum() * 4 >= n and n >= 64:
+                pcm_r, err_r, num_r = self._decode(wdev, taps=retry_taps)
+                fixed = np.nonzero(err & ~err_r[:n].cpu().numpy())[0]
+                idx = torch.from_numpy(fixed).to(self.device)
+                out[off + fixed] = pcm_r[idx].cpu().numpy()
+                nums[off + fixed] = num_r[idx].cpu().numpy()
+                err[fixed] = False
+        self.fallback_frames += int(err.sum())
+        if err.any():
+            dec = OracleDecoder(cfg)
+            for j in np.nonzero(err)[0]:
+                y, got = dec.decode_packet(blk[j])
+                out[off + j, :, :got] = y[:, :got]
+                out[off + j, :, got:] = 0
+                nums[off + j] = got
+    return out, nums
+
+
+# phase 9's host-time split: (category, module or None for this script,
+# function); each function is timed wherever the package imported it
+SPLIT = (
+    ("WAV parse + unpack", "alacjax_torch.containers.wav", "read_wav"),
+    ("WAV parse + unpack", "alacjax_torch.containers.pcm", "unpack_pcm"),
+    ("host-to-device copies", "alacjax_torch.codec", "TorchCodec._to_device"),
+    ("host-to-device copies", None, "pageable_to_device"),
+    ("device calls", "alacjax_torch.codec", "TorchCodec._encode"),
+    ("device calls", "alacjax_torch.codec", "TorchCodec._decode"),
+    ("device-to-host copies queued", "alacjax_torch.codec",
+     "TorchCodec._to_host"),
+    ("readback waits", "alacjax_torch.codec", "TorchCodec._ready"),
+    ("readback waits", None, "blocking_readback"),
+    ("words_to_bytes", "alacjax_torch.ops.bitpack", "words_to_bytes"),
+    ("bytes_to_words", "alacjax_torch.ops.bitpack", "bytes_to_words"),
+    ("container reading", "alacjax_torch.containers.caf", "read_caf"),
+    ("container reading", "alacjax_torch.containers.mp4", "read_m4a"),
+    ("container writing", "alacjax_torch.containers.caf", "write_caf"),
+    ("container writing", "alacjax_torch.containers.mp4", "write_m4a"),
+    ("container writing", "alacjax_torch.containers.wav", "write_wav"),
+    ("container writing", "alacjax_torch.containers.pcm", "pack_pcm"),
+)
+HOST_API = ("encode_frames", "encode_frames_ex", "decode_frames_ex")
+
+
+class HostSplit:
+    """Phase 9's host clock: SPLIT's functions timed into the current
+    run's ``split`` (seconds per category) and TorchCodec's host API
+    into its ``api`` (seconds, frames).  The wrappers go in once, around
+    every run, and each run only switches the dicts they write to, so no
+    run's time can land in another's.  A call made inside another timed
+    call is not timed again (counted in ``nested``), so the categories
+    never sum past the wall.  A device call's time is its enqueue plus
+    the waits inside it (the flag readbacks), not the card's busy time.
+    With ``run(..., unpipelined=True)`` the host API runs the loops it
+    had before the pipelining."""
+
+    def __init__(self):
+        self.saved = []
+        self.target = None      # (split, api) of the run in progress
+        self.unpipelined = False
+        self.busy = False
+        self.nested = 0
+        self.missed = []        # copies of a timed function left untimed
+
+    def _swap(self, owner, name, new):
+        self.saved.append((owner, name, vars(owner)[name]))  # staticmethods too
+        setattr(owner, name, new)
+
+    def _timed(self, fn, key):
+        def wrapped(*args, **kwargs):
+            if self.target is None or self.busy:
+                self.nested += self.target is not None
+                return fn(*args, **kwargs)
+            split = self.target[0]
+            self.busy = True
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.busy = False
+                split[key] = split.get(key, 0.0) + time.perf_counter() - t0
+        return wrapped
+
+    def _api(self, fn):
+        def wrapped(codec, frames, *args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(codec, frames, *args, **kwargs)
+            finally:
+                if self.target is not None:
+                    api = self.target[1]
+                    api["seconds"] = (api.get("seconds", 0.0)
+                                      + time.perf_counter() - t0)
+                    api["frames"] = api.get("frames", 0) + len(frames)
+        return wrapped
+
+    def __enter__(self):
+        from alacjax_torch.codec import TorchCodec
+        # a module imported after this would keep a wrapper past the phase:
+        # import every module that takes these functions by name first
+        for name in ("batch", "checkpoint", "cli", "convert", "reader"):
+            importlib.import_module(f"alacjax_torch.{name}")
+        for key, mod_name, qual in SPLIT:
+            if mod_name is None:
+                me = sys.modules[__name__]
+                self._swap(me, qual, self._timed(getattr(me, qual), key))
+                continue
+            mod = importlib.import_module(mod_name)
+            if "." in qual:
+                cls, name = qual.split(".")
+                owner = getattr(mod, cls)
+                fn = owner.__dict__[name]
+                if isinstance(fn, staticmethod):
+                    self._swap(owner, name,
+                               staticmethod(self._timed(fn.__func__, key)))
+                else:
+                    self._swap(owner, name, self._timed(fn, key))
+                continue
+            fn = getattr(mod, qual)
+            wrapped = self._timed(fn, key)
+            for m in list(sys.modules.values()):
+                if not getattr(m, "__name__", "").startswith("alacjax_torch"):
+                    continue
+                held = getattr(m, qual, None)
+                if held is fn:
+                    self._swap(m, qual, wrapped)
+                elif (getattr(held, "__module__", None),
+                      getattr(held, "__qualname__", None)) == (
+                          fn.__module__, fn.__qualname__):
+                    self.missed.append(f"{m.__name__}.{qual}")
+        loops = {"_encode_host": unpipelined_encode_host,
+                 "decode_frames_ex": unpipelined_decode_frames_ex}
+        for name, old in loops.items():
+            own = getattr(TorchCodec, name)
+            self._swap(TorchCodec, name,
+                       lambda *a, _own=own, _old=old:
+                       (_old if self.unpipelined else _own)(*a))
+        for name in HOST_API:
+            self._swap(TorchCodec, name, self._api(getattr(TorchCodec, name)))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self.saved):
+            setattr(owner, name, fn)
+        self.saved.clear()
+
+    @contextlib.contextmanager
+    def run(self, split: dict, api: dict, unpipelined: bool = False):
+        self.target, self.unpipelined = (split, api), unpipelined
+        try:
+            yield
+        finally:
+            self.target, self.unpipelined = None, False
+
+
+def write_album(d: str):
+    """Phase 9's album: ALBUM_TRACKS stereo-16 WAVs of make_music (noise
+    seed 100 + track) and one 24-bit 5.1 WAV of music_51, in ``d``.
+    Returns ([stereo paths], 5.1 path, [planar PCM of each])."""
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    from alacjax_torch.containers.pcm import pack_pcm
+    from alacjax_torch.containers.wav import WavFile, write_wav
+    from bench import make_music
+    paths, pcms = [], []
+    n = TRACK_SECONDS * 44100
+    with ThreadPoolExecutor(os.cpu_count()) as pool:   # numpy frees the GIL
+        music = list(pool.map(lambda i: make_music(-(-n // S), S,
+                                                   seed=100 + i),
+                              range(ALBUM_TRACKS)))
+    for i, x in enumerate(music):
+        pcm = np.transpose(x, (1, 0, 2)).reshape(2, -1)[:, :n]
+        paths.append(os.path.join(d, f"track{i:02d}.wav"))
+        write_wav(WavFile(44100, 16, 2, pack_pcm(pcm, 16)), paths[-1])
+        pcms.append(pcm)
+    n = SURROUND_SECONDS * 48000
+    x = music_51(-(-n // S))
+    pcm = np.transpose(x, (1, 0, 2)).reshape(6, -1)[:, :n]
+    path51 = os.path.join(d, "surround51.wav")
+    write_wav(WavFile(48000, 24, 6, pack_pcm(pcm, 24)), path51)
+    pcms.append(pcm)
+    return paths, path51, pcms
+
+
+def convert_album(paths, path51, out: str, timing: HostSplit, split: dict,
+                  api: dict, unpipelined: bool = False, extra=()):
+    """Phase 9's three CLI calls into ``out``, timed by ``timing`` into
+    ``split`` and ``api`` (``extra``: more CLI arguments); returns ([(step, wall s, frames through the codec)],
+    M4A paths, CAF path, decode directory)."""
+    from alacjax_torch.cli import main as cli
+    n_frames = [-(-TRACK_SECONDS * 44100 // S)] * len(paths)
+    n51 = -(-SURROUND_SECONDS * 48000 // S)
+    enc, dec = os.path.join(out, "enc"), os.path.join(out, "dec")
+    out51 = os.path.join(out, "surround51.caf")
+    m4as = [os.path.join(enc, os.path.basename(p)[:-4] + ".m4a")
+            for p in paths]
+    steps = []
+    for label, argv, frames in (
+            ("1: album -> M4A, batch, --check",
+             paths + ["--outdir", enc, "--to", "m4a", "--check"],
+             2 * sum(n_frames)),
+            ("2: 5.1 -> CAF, --check", [path51, out51, "--check"], 2 * n51),
+            ("3: M4As + CAF -> WAV, batch", m4as + [out51, "--outdir", dec],
+             sum(n_frames) + n51)):
+        os.makedirs(out, exist_ok=True)
+        with timing.run(split, api, unpipelined):
+            t0 = time.perf_counter()
+            rc = cli(argv + list(extra))
+            wall = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"phase 9: step {label} exited {rc}")
+        steps.append((label, wall, frames))
+    return steps, m4as, out51, dec
+
+
+def print_split(title: str, steps, split: dict, api: dict) -> float:
+    wall = sum(w for _, w, _ in steps)
+    for label, w, frames in steps:
+        print(f"  {title} step {label}: wall {w} s, {frames} frames through "
+              f"the codec, {frames / w} frames/s")
+    other = wall - sum(split.values())
+    parts = ", ".join(f"{k} {v} s" for k, v in split.items())
+    print(f"  {title} host split over {wall} s: {parts}, other "
+          f"(python, checks, the oracle) {other} s")
+    rate = api["frames"] / api["seconds"]
+    print(f"  {title} host API (encode_frames/_ex, decode_frames_ex): "
+          f"{api['frames']} frames in {api['seconds']} s, {rate} frames/s")
+    return rate
+
+
+def converter(counts, card: str, kind: str, device: str = "cuda"):
+    """Phase 9: the album through the CLI twice: with the pipelined host
+    API (the run whose launches are counted and whose packets are
+    checked), then with the unpipelined loop it replaced.  ``device``
+    other than cuda is for rehearsals."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from alacjax_torch import AlacConfig, AlacReader, codec as tcodec
+    from alacjax_torch import native
+    from alacjax_torch.containers.caf import read_caf
+    from alacjax_torch.containers.mp4 import read_m4a
+    from alacjax_torch.containers.wav import read_wav
+
+    t_phase = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="chip_smoke_album_")
+    try:
+        t0 = time.perf_counter()
+        paths, path51, pcms = write_album(d)
+        wav_mb = sum(os.path.getsize(p) for p in paths + [path51]) / 1e6
+        print(f"  album written in {time.perf_counter() - t0} s: "
+              f"{len(paths)} stereo-16 tracks of {TRACK_SECONDS} s and one "
+              f"24-bit 5.1 track of {SURROUND_SECONDS} s, {wav_mb} MB of WAV",
+              flush=True)
+        sources = {p: read_wav(p).data for p in paths + [path51]}
+        tcodec._CODEC_CACHE.clear()
+        extra = () if device == "cuda" else ("--device", device)
+        runs = []       # (title, steps, split, api) in the order they ran
+        with HostSplit() as timing:
+            for title, unpiped in (("pipelined", False),
+                                   ("unpipelined", True)):
+                split, api = {}, {}
+                out = os.path.join(d, f"run{len(runs)}")
+                with (path_run("phase 9", counts) if not runs
+                      else contextlib.nullcontext()):
+                    steps, m4as, out51, dec = convert_album(
+                        paths, path51, out, timing, split, api,
+                        unpipelined=unpiped, extra=extra)
+                for src, data in sources.items():
+                    got = read_wav(os.path.join(dec, os.path.basename(src)))
+                    if got.data != data:
+                        fail(f"phase 9: {title}: {os.path.basename(src)} "
+                             "is not lossless")
+                runs.append((title, steps, split, api))
+                if runs[1:]:
+                    shutil.rmtree(out)
+                else:
+                    first = (m4as, out51)
+        print(f"  host split: {timing.nested} timed calls made inside "
+              "another timed call, counted once; copies left untimed: "
+              f"{timing.missed or 'none'}")
+        m4as, out51 = first
+        bad = [c for c in tcodec._CODEC_CACHE.values() if c.fallback_frames]
+        if bad:
+            fail(f"phase 9: {sum(c.fallback_frames for c in bad)} frames "
+                 "went to the oracle")
+        cfg = AlacConfig(bit_depth=16, num_channels=2, frame_length=S,
+                         sample_rate=44100)
+        cfg51 = AlacConfig(bit_depth=24, num_channels=6, frame_length=S,
+                           sample_rate=48000)
+        held = 0
+        for i, (pcm, c, blob) in enumerate(
+                [(pcms[i], cfg, read_m4a(m4as[i])) for i in range(len(paths))]
+                + [(pcms[-1], cfg51, read_caf(out51))]):
+            whole = i in (0, len(paths))
+            n_pk = len(blob.packets) if whole else N_ALBUM_NATIVE
+            enc = native.NativeEncoder(c, independent_frames=True)
+            for k in range(n_pk):
+                if enc.encode_packet(pcm[:, k * S:(k + 1) * S]) != \
+                        blob.packets[k]:
+                    fail(f"phase 9: track {i} packet {k} differs from the "
+                         "native C++ encoder's")
+            held += n_pk
+        rng = np.random.default_rng(9)
+        start = int(rng.integers(0, pcms[3].shape[1] - 10 * S))
+        count = int(rng.integers(1, 10 * S))
+        reader = AlacReader(m4as[3], backend="torch", device=device)
+        if not np.array_equal(reader.read(start, count),
+                              pcms[3][:, start:start + count]):
+            fail("phase 9: AlacReader's range read differs from the source")
+        print(f"  lossless on all {len(pcms)} tracks, {held} packets "
+              f"byte-identical to the native C++ encoder (tracks 0 and 5.1 "
+              f"whole, the first {N_ALBUM_NATIVE} of the others), "
+              f"AlacReader samples [{start}, {start + count}) of track 3 "
+              f"equal to the source, 0 frames to the oracle")
+        rates = [(title, print_split(title, steps, split, api),
+                  sum(w for _, w, _ in steps))
+                 for title, steps, split, api in runs]
+        print(f"  host API frames/s and wall s on {kind} ({card}): "
+              + "; ".join(f"{t} {r} frames/s, {w} s" for t, r, w in rates))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+        tcodec._CODEC_CACHE.clear()
+        torch.cuda.empty_cache()
+    print(f"  phase 9 took {time.perf_counter() - t_phase} s")
+
+
 def profile(fn, name: str):
     """With --profile DIR: a torch.profiler table of one call of fn,
     written to DIR/name."""
@@ -1075,6 +1498,12 @@ def main() -> int:
           f"{kind} ({card})", flush=True)
     legacy, x = predict_legacy_route(cfg, pcm, counts, main4)
     profile(lambda: legacy._encode(x), "profile_legacy.txt")
+    del legacy, x, pcm
+
+    # phase 9: the converter
+    print(f"phase 9: converter, python -m alacjax_torch.cli on an album on "
+          f"{kind} ({card})", flush=True)
+    converter(counts, card, kind)
 
     if "jax" in sys.modules:
         fail("jax was imported")
