@@ -2,24 +2,30 @@
 
 Ported so far: the encode of every element layout, depth 16/20/24/32,
 partial tail and search mode (standard, fast, exhaustive) in
-independent frames, with the standalone-predictor route as an option,
-and the decode of every layout, depth and legal predictor order (the
-8 -> 16 -> 30-tap retry ladder); persistent coefficient banks are not
-ported yet.  Every scan runs in a hand-written CUDA kernel for Hopper
+independent frames, with the standalone-predictor route as an option;
+the stream encode with persistent coefficient banks (encode_streams,
+encode_stream_device); the decode of every layout, depth and legal
+predictor order (the 8 -> 16 -> 30-tap retry ladder); and the
+multi-device frames axis (parallel.ShardedCodec, get_codec(devices=)).
+Every scan runs in a hand-written CUDA kernel for Hopper
 (``alacjax_torch/csrc``) on CUDA tensors, and in its plain torch version
 (``alacjax_torch/ops``) on CPU tensors.  The package imports torch and
 never jax; alacjax/ stays the reference it is held to, bit for bit.
 
 Modules:
   * codec       — TorchCodec / get_codec: the batched device codec and
-                  its host API (chunks pipelined one ahead), and the
-                  convert backend "torch"
+                  its host API (chunks pipelined one ahead),
+                  encode_streams / encode_stream_device (persistent
+                  banks), and the convert backend "torch"
+  * parallel/   — ShardedCodec, frame_mesh: frame batches split across
+                  devices
   * containers/ — WAV, CAF, M4A and PCM packing
   * convert     — WAV <-> CAF/M4A file conversion ("oracle", "torch")
   * batch       — convert_many: many files in shared device batches
   * reader      — AlacReader: sample-accurate random access
   * checkpoint  — resumable_encode / finalize: journaled encodes
   * cli         — ``python -m alacjax_torch.cli`` (alacconvert)
+  * utils/      — stage annotations, StageTimer, StreamReport, get_logger
   * kernels/, csrc/, ops/ — the CUDA kernels, their wrappers and their
                   plain torch versions
   * types, cookie, bitbuffer, oracle/, native/ — copies of alacjax's
@@ -28,7 +34,9 @@ Modules:
 
 from .types import AlacConfig
 
-from .codec import TorchCodec, get_codec
+from .codec import TorchCodec, encode_stream_device, encode_streams, get_codec
+from .parallel import ShardedCodec
 from .reader import AlacReader
 
-__all__ = ["AlacConfig", "AlacReader", "TorchCodec", "get_codec"]
+__all__ = ["AlacConfig", "AlacReader", "ShardedCodec", "TorchCodec",
+           "encode_stream_device", "encode_streams", "get_codec"]

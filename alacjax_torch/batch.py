@@ -101,7 +101,8 @@ def _slice_budget(chunk: int | None) -> int:
 
 
 def _encode_group(jobs, frame_length: int, fast_mode: bool,
-                  chunk: int | None, search: str, device) -> None:
+                  chunk: int | None, search: str, device,
+                  devices) -> None:
     """jobs: list of dicts with src/out (planned via header probes);
     PCM loads lazily, a slice of files at a time, each slice one batched
     device stream — a 10k-file batch never holds 10k files in memory."""
@@ -111,7 +112,8 @@ def _encode_group(jobs, frame_length: int, fast_mode: bool,
         frame_length=frame_length, bit_depth=jobs[0]["info"].bit_depth,
         num_channels=jobs[0]["info"].num_channels, sample_rate=_CANON_RATE,
         fast_mode=fast_mode, search=search)
-    codec = get_codec(config, chunk or DEFAULT_CHUNK, device=device)
+    codec = get_codec(config, chunk or DEFAULT_CHUNK, device=device,
+                      devices=devices)
     budget = _slice_budget(chunk)
 
     pend: list[tuple] = []  # (job, wav, frames, nums, n_samples)
@@ -152,14 +154,15 @@ def _encode_group(jobs, frame_length: int, fast_mode: bool,
     flush()
 
 
-def _decode_group(jobs, chunk: int | None, device) -> None:
+def _decode_group(jobs, chunk: int | None, device, devices) -> None:
     """jobs: list of dicts with src/out/key (planned via a cookie pass);
     containers re-read lazily per slice, each slice one device batch."""
     from .codec import DEFAULT_CHUNK, get_codec
 
     key = jobs[0]["key"]
     S = key.frame_length
-    codec = get_codec(key, chunk or DEFAULT_CHUNK, device=device)
+    codec = get_codec(key, chunk or DEFAULT_CHUNK, device=device,
+                      devices=devices)
     budget = _slice_budget(chunk)
 
     pend: list[tuple] = []  # (job, caf, n_pk, n_full, rem)
@@ -254,14 +257,15 @@ def convert_many(inputs: list[str], outdir: str, to: str | None = None,
                  frame_length: int = 4096, fast_mode: bool = False,
                  backend: str = "torch", chunk: int | None = None,
                  search: str = "standard", resume: bool = False,
-                 device="cuda") -> list[str]:
+                 device="cuda", devices=None) -> list[str]:
     """Convert many files in shared device batches.
 
     inputs: .wav files (encoded to .caf/.m4a per ``to``) and/or
     .caf/.m4a files (decoded to .wav), mixed freely; outputs land in
     ``outdir`` under the input basename.  Encode jobs group by
     (bit_depth, channels) and decode jobs by codec cookie parameters;
-    each group runs as ONE batched device stream on ``device``.  With a
+    each group runs as ONE batched device stream on ``device``, its
+    frame batches split across ``devices`` (codec.get_codec).  With a
     non-torch backend the files convert one by one through convert.convert_file
     (no cross-file batching on a scalar host codec).
 
@@ -295,9 +299,10 @@ def convert_many(inputs: list[str], outdir: str, to: str | None = None,
             if i.lower().endswith(_ENC_EXTS):
                 convert_file(i, o, frame_length=frame_length,
                              fast_mode=fast_mode, backend=backend,
-                             search=search, device=device)
+                             search=search, device=device, devices=devices)
             else:
-                convert_file(i, o, backend=backend, device=device)
+                convert_file(i, o, backend=backend, device=device,
+                             devices=devices)
         return outs
 
     # planning pass holds only header metadata (probe_wav / the cookie);
@@ -326,7 +331,8 @@ def convert_many(inputs: list[str], outdir: str, to: str | None = None,
             raise AlacParamError(f"{i}: unsupported input extension")
 
     for jobs in enc_groups.values():
-        _encode_group(jobs, frame_length, fast_mode, chunk, search, device)
+        _encode_group(jobs, frame_length, fast_mode, chunk, search, device,
+                      devices)
     for jobs in dec_groups.values():
-        _decode_group(jobs, chunk, device)
+        _decode_group(jobs, chunk, device, devices)
     return outs

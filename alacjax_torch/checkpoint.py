@@ -95,7 +95,7 @@ def resumable_encode(wav_path: str, out_path: str,
                      frame_length: int = 4096, backend: str = "torch",
                      chunk_frames: int = 256, fast_mode: bool = False,
                      _fail_after_chunks: int | None = None,
-                     device="cuda") -> EncodeState:
+                     device="cuda", devices=None) -> EncodeState:
     """Encode WAV -> CAF with chunk-level checkpointing.
 
     Safe to re-invoke after interruption: finished chunks are never
@@ -138,7 +138,8 @@ def resumable_encode(wav_path: str, out_path: str,
         frames = np.transpose(
             pcm[:, lo * frame_length: hi * frame_length]
             .reshape(config.num_channels, hi - lo, frame_length), (1, 0, 2))
-        packets = _encode_frames(encode_stream, config, frames, device)
+        packets = _encode_frames(encode_stream, config, frames, device,
+                                 devices)
         with open(pp, "ab") as f:
             for p in packets:
                 f.write(p)
@@ -157,10 +158,10 @@ def resumable_encode(wav_path: str, out_path: str,
     return st
 
 
-def _encode_frames(encode_stream, config, frames, device):
+def _encode_frames(encode_stream, config, frames, device, devices):
     flat = np.transpose(frames, (1, 0, 2)).reshape(
         config.num_channels, -1)
-    return encode_stream(config, flat, device)
+    return encode_stream(config, flat, device, devices)
 
 
 def finalize(wav_path: str, out_path: str, backend: str = "torch",

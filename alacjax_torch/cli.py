@@ -10,6 +10,8 @@ Direction is inferred from the file extensions, exactly like the
 reference's ``alacconvert``.  The torch backend (the default) runs on
 ``--device`` (default cuda); without a card it exits nonzero before it
 writes anything: pass ``--backend oracle`` or ``--device cpu``.
+``--devices N`` splits its frame batches across N devices (default:
+every visible card); it reaches the codec as an argument.
 """
 
 from __future__ import annotations
@@ -26,9 +28,6 @@ def build_parser() -> argparse.ArgumentParser:
         description="Apple Lossless converter (PyTorch/CUDA rebuild). "
                     "WAV->CAF/M4A encodes; CAF/M4A->WAV decodes; "
                     "CAF<->M4A repacks without transcoding.",
-        epilog="Sharding device batches across several cards (alacjax's "
-               "--devices) is not ported yet: the torch backend runs on "
-               "the one --device.",
     )
     p.add_argument("files", nargs="+", metavar="FILE",
                    help="INPUT OUTPUT for a single conversion, or (with "
@@ -56,6 +55,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device of the torch backend (default: cuda; "
                         "cpu runs its plain torch versions on the host)")
+    p.add_argument("--devices", type=int, default=None, metavar="N",
+                   help="split the torch backend's device batches across "
+                        "up to N cards (default: all visible cards, "
+                        "bounded by ALACJAX_DEVICES; frame-parallel, "
+                        "byte-identical output); with --device cpu, N "
+                        "shares on the host")
     p.add_argument("--search", choices=("standard", "exhaustive"),
                    default="standard",
                    help="encoder parameter search: standard (dilated "
@@ -84,7 +89,7 @@ def _check_single(args, backend: str) -> None:
         return
     from .convert import verify_lossless
     n = verify_lossless(args.input, args.output, backend=backend,
-                        device=args.device)
+                        device=args.device, devices=args.devices)
     print(f"alacconvert: --check OK ({n} samples lossless)",
           file=sys.stderr)
 
@@ -108,6 +113,10 @@ def main(argv=None) -> int:
         except RuntimeError as e:
             print(f"alacconvert: bad --device: {e}", file=sys.stderr)
             return 2
+        if args.devices is not None and args.devices < 1:
+            print("alacconvert: --devices must be at least 1",
+                  file=sys.stderr)
+            return 2
         if dev.type == "cuda" and not torch.cuda.is_available():
             print(f"alacconvert: --device {args.device}: no CUDA device is "
                   "available; pass --backend oracle (the scalar host "
@@ -126,7 +135,8 @@ def main(argv=None) -> int:
                 args.files, args.outdir, to=args.to,
                 frame_length=args.frame_size, fast_mode=args.fast,
                 backend=backend, search=args.search,
-                resume=args.resume, device=args.device)
+                resume=args.resume, device=args.device,
+                devices=args.devices)
             if args.check:
                 from .convert import verify_lossless
                 wavs = [(i, o) for i, o in zip(args.files, outs)
@@ -135,7 +145,8 @@ def main(argv=None) -> int:
                     raise AlacError(-50, "--check applies to encodes "
                                     "(no .wav inputs in this batch)")
                 total = sum(verify_lossless(i, o, backend=backend,
-                                            device=args.device)
+                                            device=args.device,
+                                            devices=args.devices)
                             for i, o in wavs)
                 print(f"alacconvert: --check OK ({len(wavs)} files, "
                       f"{total} samples lossless)", file=sys.stderr)
@@ -171,13 +182,14 @@ def main(argv=None) -> int:
                 blob, out_fmt, frame_length=args.frame_size,
                 fast_mode=args.fast,
                 independent_frames=args.independent_frames,
-                backend=backend, search=args.search, device=args.device)
+                backend=backend, search=args.search, device=args.device,
+                devices=args.devices)
             if args.check:
                 if in_fmt != "wav":
                     raise AlacError(-50, "--check applies to encodes")
                 from .convert import verify_lossless
                 n = verify_lossless(blob, out, backend=backend,
-                                    device=args.device)
+                                    device=args.device, devices=args.devices)
                 print(f"alacconvert: --check OK ({n} samples lossless)",
                       file=sys.stderr)
             if args.output == "-":
@@ -190,7 +202,8 @@ def main(argv=None) -> int:
             from . import checkpoint
             checkpoint.resumable_encode(
                 args.input, args.output, frame_length=args.frame_size,
-                backend=backend, fast_mode=args.fast, device=args.device)
+                backend=backend, fast_mode=args.fast, device=args.device,
+                devices=args.devices)
             checkpoint.finalize(args.input, args.output, backend=backend,
                                 device=args.device)
             _check_single(args, backend)
@@ -203,13 +216,14 @@ def main(argv=None) -> int:
                 backend=backend,
                 search=args.search,
                 device=args.device,
+                devices=args.devices,
             )
             _check_single(args, backend)
         else:
             if args.check:
                 raise AlacError(-50, "--check applies to encodes")
             convert_file(args.input, args.output, backend=backend,
-                         device=args.device)
+                         device=args.device, devices=args.devices)
     except AlacError as e:
         print(f"alacconvert: {e}", file=sys.stderr)
         return abs(e.status) % 256 or 1

@@ -2,9 +2,11 @@
 Encode: every element layout (mono, stereo, 3 to 8 channels as SCE/CPE/
 LFE elements), depths 16/20/24/32, partial frames batched with full
 frames, the standard, fast and exhaustive searches, independent frames
-(persistent coefficient banks are not ported yet).  Decode: every
-layout and depth, partial frames and every legal predictor order,
-through the 8 -> 16 -> 30-tap retry ladder.
+or, through encode_stream_device / encode_streams, streams of packets
+that carry persistent coefficient banks from one packet to the next
+(the stateful encoder's mode).  Decode: every layout and depth, partial
+frames and every legal predictor order, through the 8 -> 16 -> 30-tap
+retry ladder.
 
 Encode dataflow (alacjax.codec._encode_packet_chunks, general branch):
 per-element shift-off -> stereo mode of every CPE (one dilated trial, 7
@@ -41,6 +43,8 @@ patterns (empty keys -1), the small header images as int64.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -61,6 +65,7 @@ from .kernels import predict as k_predict
 from .ops import bitpack, fused_decode, matrix, predict
 from .ops.tutils import I32, I64, MASK32, as_i32_bits, iota1, sign_extend, u32
 from .state import init_coefs_batched
+from .utils.metrics import stage_annotation
 
 DEFAULT_CHUNK = 256
 
@@ -68,17 +73,30 @@ DEFAULT_CHUNK = 256
 DECODE_DEPTHS = (16, 20, 24, 32)
 
 
-def check_encode_config(config: AlacConfig, banks=None) -> None:
+def check_encode_config(config: AlacConfig) -> None:
     """Raise unless the port's encoder covers this configuration: every
-    layout, depth 16/20/24/32 and search mode, in independent frames.
-    Persistent coefficient banks (alacjax's encode_stream_device and
-    encode_streams) are not ported yet."""
+    layout, depth 16/20/24/32 and search mode (persistent coefficient
+    banks take the standard and fast searches: ``_check_banks``)."""
     check_decode_config(config)
-    if banks is not None:
+
+
+def _check_banks(banks, config: AlacConfig, B: int) -> None:
+    """Raise unless ``banks`` holds a (B, 16) int32 bank of every searched
+    order for every channel, and the search is not exhaustive."""
+    if config.search == "exhaustive" and not config.fast_mode:
         raise AlacParamError(
-            "alacjax_torch encodes independent frames; persistent "
-            "coefficient banks are not ported yet (use alacjax.codec."
-            "encode_streams)")
+            "exhaustive device search is independent-frames only "
+            "(persistent-bank stream encode uses the standard search; "
+            "the stateful host encoders cover exhaustive+banks)")
+    orders = [FAST_ORDER] if config.fast_mode else list(SEARCH_ORDERS)
+    for ch in range(config.num_channels):
+        for od in orders:
+            bank = banks.get(ch, {}).get(od)
+            if not isinstance(bank, torch.Tensor) or bank.dtype != I32 \
+                    or tuple(bank.shape) != (B, kALACMaxCoefs):
+                raise AlacParamError(
+                    f"banks[{ch}][{od}] must be a ({B}, {kALACMaxCoefs}) "
+                    f"int32 tensor")
 
 
 def check_decode_config(config: AlacConfig) -> None:
@@ -143,21 +161,24 @@ def _tile_lanes(nums, n: int):
 
 def _price(xs, c0s, orders, chanbits, num, config, dual: bool,
            predict_legacy: bool):
-    """Residuals and Rice costs of stacked streams at each static order
-    of ``orders``: (res (n, L, S), cost1 (n, L), cost2 (n, L) or None),
-    one row per order.  The default route is ONE launch of the fused
-    cost kernel for every order.  ``predict_legacy`` is the standalone-
-    predictor route (alacjax/ops/predict.py:328-332 and :375-381): per
-    order the predictor kernel, then the Rice cost of its residuals and,
-    for stage 2, of their first difference; the cost kernel is not
-    launched."""
+    """Residuals, Rice costs and adapted coefficients of stacked streams
+    at each static order of ``orders``: (res (n, L, S), cost1 (n, L),
+    cost2 (n, L) or None, coefs (n, L, 16)), one row per order.  ``c0s``
+    is (L, 16), every order's starting coefficients, or (n, L, 16), one
+    block per order (persistent banks).  The default route is ONE launch
+    of the fused cost kernel for every order.  ``predict_legacy`` is the
+    standalone-predictor route (alacjax/ops/predict.py:328-332 and
+    :375-381): per order the predictor kernel, then the Rice cost of its
+    residuals and, for stage 2, of their first difference; the cost
+    kernel is not launched."""
     mb0, pb, kb, wb = _rice_params_static(config)
     if predict_legacy:
-        res, c1, c2 = [], [], []
-        for od in orders:
-            r, _ = k_predict.pc_block(xs, c0s, od, chanbits,
-                                      DENSHIFT_DEFAULT)
+        res, c1, c2, coefs = [], [], [], []
+        for i, od in enumerate(orders):
+            r, c = k_predict.pc_block(xs, c0s[i] if c0s.dim() == 3 else c0s,
+                                      od, chanbits, DENSHIFT_DEFAULT)
             res.append(r)
+            coefs.append(c)
             c1.append(k_predict.rice_cost(r, chanbits, mb0, pb, kb, wb,
                                           num=num))
             if dual:
@@ -165,11 +186,11 @@ def _price(xs, c0s, orders, chanbits, num, config, dual: bool,
                     predict.wrap_diff(r, chanbits), chanbits, mb0, pb, kb,
                     wb, num=num))
         return (torch.stack(res), torch.stack(c1),
-                torch.stack(c2) if dual else None)
-    res, c1, c2, _ = k_cost.pc_block_cost2(
+                torch.stack(c2) if dual else None, torch.stack(coefs))
+    res, c1, c2, coefs = k_cost.pc_block_cost2(
         xs, c0s, orders, chanbits, DENSHIFT_DEFAULT, mb0, pb, kb, wb,
         dual=dual, num=num)
-    return res, c1, c2 if dual else None
+    return res, c1, c2 if dual else None, coefs
 
 
 def _mixres_select(cpe_pairs, chanbits: int, config, nums=None,
@@ -194,8 +215,10 @@ def _mixres_select(cpe_pairs, chanbits: int, config, nums=None,
     nd = (None if nums is None
           else _tile_lanes((nums + MIXRES_DILATE - 1) // MIXRES_DILATE,
                            len(cand)))
-    _, c, _ = _price(st, init_coefs_batched(st.shape[0], dev), (FAST_ORDER,),
-                     chanbits, nd, config, False, predict_legacy)
+    with stage_annotation("mixres_trial"):
+        _, c, _, _ = _price(st, init_coefs_batched(st.shape[0], dev),
+                            (FAST_ORDER,), chanbits, nd, config, False,
+                            predict_legacy)
     ce = c[0].to(I64).reshape(len(cpe_pairs), n_cand, B)
     return [torch.argmin(torch.stack(
         [ce[e, 0] + ce[e, 1]]
@@ -204,13 +227,16 @@ def _mixres_select(cpe_pairs, chanbits: int, config, nums=None,
 
 
 def _search_channels(streams, chanbits_list, config, nums=None,
-                     predict_legacy: bool = False):
+                     predict_legacy: bool = False, banks=None):
     """Per-channel (order x stage) candidate search over every stacked
     stream: one pricing call for every order, per-lane chanbits when SCE
     and CPE channels mix.  Candidates (4,1),(4,2),(8,1),(8,2),
-    first minimum wins; fast mode prices order 8, stage 1 only.  Returns
-    per-stream lists (res, order, mode, rice_bits); every stream starts
-    from the fresh coefficients."""
+    first minimum wins; fast mode prices order 8, stage 1 only.  Every
+    order starts from the fresh coefficients or, with ``banks`` (one
+    {order: (B, 16)} dict per stream), from its own bank.  Returns
+    per-stream lists (res, order, mode, rice_bits, coefs0_win — the
+    winning order's starting coefficients — and {order: adapted
+    coefs})."""
     B = streams[0].shape[0]
     dev = streams[0].device
     fast = config.fast_mode
@@ -218,14 +244,20 @@ def _search_channels(streams, chanbits_list, config, nums=None,
     stages = [1] if fast else list(SEARCH_STAGES)
     W = len(streams)
     xs = torch.cat(streams, dim=0).contiguous()
-    c0s = init_coefs_batched(W * B, dev)
+    if banks is None:
+        c0s = init_coefs_batched(W * B, dev)
+    else:
+        c0s = torch.stack([torch.cat([banks[ci][od] for ci in range(W)])
+                           for od in orders])
     cb_all = _lane_chanbits(chanbits_list, B, dev)
     num_all = _tile_lanes(nums, W)
-    res_o, c1_o, c2_o = _price(xs, c0s, tuple(orders), cb_all, num_all,
-                               config, len(stages) > 1, predict_legacy)
+    with stage_annotation("predict_cost"):
+        res_o, c1_o, c2_o, coefs_o = _price(
+            xs, c0s, tuple(orders), cb_all, num_all, config,
+            len(stages) > 1, predict_legacy)
     by_order = {od: (res_o[i], c1_o[i], None if c2_o is None else c2_o[i])
                 for i, od in enumerate(orders)}
-    res_l, order_l, mode_l, rice_l = [], [], [], []
+    res_l, order_l, mode_l, rice_l, c0_l, adapted_l = [], [], [], [], [], []
     for ci in range(W):
         sl = slice(ci * B, (ci + 1) * B)
         cand_costs, cand_rice = [], []
@@ -247,9 +279,12 @@ def _search_channels(streams, chanbits_list, config, nums=None,
             # encoder's value)
             mode_win = torch.where(hit, 0 if stg == 1 else 15, mode_win)
         res_win = by_order[orders[0]][0][sl]
+        c0_win = c0s[sl] if banks is None else banks[ci][orders[0]]
         for od in orders[1:]:
-            res_win = torch.where((order_win == od)[:, None],
-                                  by_order[od][0][sl], res_win)
+            sel = (order_win == od)[:, None]
+            res_win = torch.where(sel, by_order[od][0][sl], res_win)
+            if banks is not None:
+                c0_win = torch.where(sel, banks[ci][od], c0_win)
         if len(stages) > 1:
             res_win = torch.where((mode_win != 0)[:, None],
                                   predict.wrap_diff(res_win,
@@ -259,12 +294,17 @@ def _search_channels(streams, chanbits_list, config, nums=None,
         order_l.append(order_win)
         mode_l.append(mode_win)
         rice_l.append(rice_win)
-    return res_l, order_l, mode_l, rice_l
+        c0_l.append(c0_win)
+        adapted_l.append({od: coefs_o[i][sl] for i, od in enumerate(orders)})
+    return res_l, order_l, mode_l, rice_l, c0_l, adapted_l
 
 
-def _select_standard(elems, config, nums, predict_legacy: bool) -> None:
+def _select_standard(elems, config, nums, predict_legacy: bool,
+                     banks=None) -> None:
     """Stereo mode of every CPE (the dilated trial, or fast mode's
-    constant), then one search over every channel of every element."""
+    constant; both with fresh coefficients), then one search over every
+    channel of every element, each channel's orders starting from its
+    banks when ``banks`` is given."""
     B = elems[0]["chans"][0].shape[0]
     dev = elems[0]["chans"][0].device
     cpes = [e for e in elems if e["is_cpe"]]
@@ -287,14 +327,17 @@ def _select_standard(elems, config, nums, predict_legacy: bool) -> None:
             e["mixres"] = torch.zeros((B,), dtype=I64, device=dev)
             streams.append(e["his"][0])
         cbs += [e["chanbits"]] * e["width"]
-    res, orders, modes, rice_bits = _search_channels(
-        streams, cbs, config, nums, predict_legacy)
+    stream_banks = None if banks is None else [
+        banks[e["ch0"] + i] for e in elems for i in range(e["width"])]
+    res, orders, modes, rice_bits, c0_win, adapted = _search_channels(
+        streams, cbs, config, nums, predict_legacy, stream_banks)
     ci = 0
     for e in elems:
         sl = slice(ci, ci + e["width"])
         ci += e["width"]
         e.update(res=res[sl], orders=orders[sl], modes=modes[sl],
-                 rice_bits=rice_bits[sl])
+                 rice_bits=rice_bits[sl], coefs0_win=c0_win[sl],
+                 adapted=adapted[sl])
 
 
 def _select_exhaustive(elems, config, nums, predict_legacy: bool) -> None:
@@ -315,10 +358,12 @@ def _select_exhaustive(elems, config, nums, predict_legacy: bool) -> None:
             else:
                 streams.append(e["his"][0])
             cbs += [e["chanbits"]] * e["width"]
-    res, orders, modes, rice_bits = _search_channels(
+    res, orders, modes, rice_bits, c0_win, _ = _search_channels(
         streams, cbs, config, nums, predict_legacy)
     for e in elems:
         slots, w = e["slots"], e["width"]
+        # fresh coefficients on every slot: any slot's rows will do
+        e["coefs0_win"] = c0_win[slots[0]:slots[0] + w]
         if not e["is_cpe"]:
             s = slots[0]
             e.update(mixres=torch.zeros((B,), dtype=I64, device=dev),
@@ -467,11 +512,12 @@ def _header_stream(e, bs: int, nums, S: int):
     hv.append(((DEFAULT_MIX_BITS << 8) | (e["mixres"].to(I64) & 0xFF))[:, None]
               if e["is_cpe"] else full(0))
     hl.append(full(16))
-    coefs0 = init_coefs_batched(B, dev)   # independent frames: fresh coefs
     for ci in range(e["width"]):
         hv.append(_chparam_token(e["orders"][ci], e["modes"][ci])[:, None])
         hl.append(full(16))
-        cv, cl = _coef_tokens(coefs0, e["orders"][ci])
+        # the coefficients the winning order started from: fresh, or its
+        # bank in a stream
+        cv, cl = _coef_tokens(e["coefs0_win"][ci], e["orders"][ci])
         hv.append(cv)
         hl.append(cl)
         cap += 16 + 16 * kALACMaxCoefs
@@ -482,8 +528,15 @@ def _encode_packet_chunks(pcm, config: AlacConfig, num_words: int,
                           nums=None, predict_legacy: bool = False,
                           banks=None):
     """(B, C, S) int32 planar -> ((B, W) int32 word image, (B,) int32
-    total bits): the general branch of alacjax's _encode_packet_chunks
-    in independent-frames mode (``banks`` must be None).
+    total bits, new banks): the general branch of alacjax's
+    _encode_packet_chunks.
+
+    ``banks`` (None: independent frames, fresh coefficients, new banks
+    None): {channel: {order: (B, 16) int32}} persistent coefficient
+    banks, each order's search starting from its own; the new banks
+    follow the oracle's commit rule (the winning order's bank takes its
+    adapted coefficients unless the element escaped; every other bank
+    stays).  The standard and fast searches only.
 
     ``nums`` (per-lane (B,), 1 <= nums <= S; samples past it zero):
     lanes with nums < S encode as partial frames — the header's partial
@@ -492,8 +545,10 @@ def _encode_packet_chunks(pcm, config: AlacConfig, num_words: int,
     ``predict_legacy`` prices the trial and the search through the
     standalone predictor kernel and the Rice cost kernel instead of the
     fused cost kernel: the same packets."""
-    check_encode_config(config, banks)
+    check_encode_config(config)
     B = pcm.shape[0]
+    if banks is not None:
+        _check_banks(banks, config, B)
     dev = pcm.device
     S = config.frame_length
     depth = config.bit_depth
@@ -517,13 +572,14 @@ def _encode_packet_chunks(pcm, config: AlacConfig, num_words: int,
         elems.append(dict(
             tag=tag, instance=instance, width=width, is_cpe=is_cpe,
             chanbits=depth - 8 * bs + (1 if is_cpe else 0), chans=chans,
-            his=[h for h, _ in split], los=[lo for _, lo in split]))
+            his=[h for h, _ in split], los=[lo for _, lo in split],
+            ch0=ch - width))
 
     # ---- stereo modes and the channel search ----
     if config.search == "exhaustive" and not config.fast_mode:
         _select_exhaustive(elems, config, nums, predict_legacy)
     else:
-        _select_standard(elems, config, nums, predict_legacy)
+        _select_standard(elems, config, nums, predict_legacy, banks)
 
     # ---- per-element header / escape sizing; chained element starts ----
     n_lane = S if nums is None else nums
@@ -546,6 +602,21 @@ def _encode_packet_chunks(pcm, config: AlacConfig, num_words: int,
         start = start + torch.where(e["use_escape"], esc_bits, comp_bits)
     total_c = start
 
+    new_banks = None
+    if banks is not None:
+        # the oracle's commit rule: the winning order's bank takes the
+        # adapted coefficients unless the element escaped
+        new_banks = dict(banks)
+        for e in elems:
+            for ci in range(e["width"]):
+                chan = e["ch0"] + ci
+                upd = dict(banks[chan])
+                for od, coefs in e["adapted"][ci].items():
+                    take = ~e["use_escape"] & (e["orders"][ci] == od)
+                    upd[od] = torch.where(take[:, None], coefs,
+                                          banks[chan][od])
+                new_banks[chan] = upd
+
     # one readback: every lane of every element escaped, then per element
     # whether any lane escaped
     ue = torch.stack([e["use_escape"] for e in elems])
@@ -565,10 +636,11 @@ def _encode_packet_chunks(pcm, config: AlacConfig, num_words: int,
                 starts.append(pos)
                 cbs.append(e["chanbits"])
                 pos = pos + e["rice_bits"][ci]
-        emitted = k_emit.rice_encode_words(
-            torch.cat(feed, dim=0), _lane_chanbits(cbs, B, dev), mb0, pb, kb,
-            wb, torch.cat(starts, dim=0).to(I32), bit_size_cap=max(cbs),
-            num=_tile_lanes(nums, len(feed)))
+        with stage_annotation("rice_words"):
+            emitted = k_emit.rice_encode_words(
+                torch.cat(feed, dim=0), _lane_chanbits(cbs, B, dev), mb0, pb,
+                kb, wb, torch.cat(starts, dim=0).to(I32),
+                bit_size_cap=max(cbs), num=_tile_lanes(nums, len(feed)))
 
     # ---- END tag (3 bits) at the known end position: pure tails ----
     phase = total_c & 31
@@ -578,13 +650,14 @@ def _encode_packet_chunks(pcm, config: AlacConfig, num_words: int,
     end_tk = [total_c >> 5, torch.where(phase > 29, (total_c >> 5) + 1, MASK32)]
     total_bits = (total_c + 3).to(I32)
 
-    if any_comp:
-        words = _assemble_mixed(elems, emitted, end_tv, end_tk, config, nums,
-                                num_words)
-    else:
-        words = _assemble_all_escape(elems, end_tv, end_tk, config, nums,
-                                     num_words)
-    return words, total_bits
+    with stage_annotation("assemble"):
+        if any_comp:
+            words = _assemble_mixed(elems, emitted, end_tv, end_tk, config,
+                                    nums, num_words)
+        else:
+            words = _assemble_all_escape(elems, end_tv, end_tk, config, nums,
+                                         num_words)
+    return words, total_bits, new_banks
 
 
 def _assemble_mixed(elems, emitted, end_tv, end_tk, config, nums,
@@ -699,8 +772,54 @@ def encode_frames_device(pcm, config: AlacConfig, num_words: int, nums=None,
                          predict_legacy: bool = False):
     """(B, C, S) planar int32 tensor (+ optional (B,) per-lane sample
     counts) -> ((B, W) int32 word image, (B,) int32 total bits)."""
-    return _encode_packet_chunks(pcm, config, num_words, nums=nums,
-                                 predict_legacy=predict_legacy)
+    words, bits, _ = _encode_packet_chunks(pcm, config, num_words, nums=nums,
+                                           predict_legacy=predict_legacy)
+    return words, bits
+
+
+def encode_stream_device(pcm, config: AlacConfig, num_words: int,
+                         predict_legacy: bool = False):
+    """Persistent-coefficient stream encode (alacjax.codec.
+    encode_stream_device; reference: ALACEncoder.cpp's mCoefsU/V
+    surviving across packets): (B, N, C, S) planar int32, B independent
+    streams of N full frames each -> ((B, N, W) int32 word images,
+    (B, N) int32 total bits).  A loop over the N packets carries the
+    banks as device tensors, so the packets of a stream chain exactly
+    as the stateful encoders' do while the streams stay data-parallel;
+    the bank update adds no host sync."""
+    B, N = pcm.shape[:2]
+    orders = [FAST_ORDER] if config.fast_mode else list(SEARCH_ORDERS)
+    init0 = init_coefs_batched(B, pcm.device)
+    banks = {ch: {od: init0 for od in orders}
+             for ch in range(config.num_channels)}
+    words, bits = [], []
+    for t in range(N):
+        w, b, banks = _encode_packet_chunks(
+            pcm[:, t].contiguous(), config, num_words,
+            predict_legacy=predict_legacy, banks=banks)
+        words.append(w)
+        bits.append(b)
+    return torch.stack(words, dim=1), torch.stack(bits, dim=1)
+
+
+def encode_streams(pcm: np.ndarray, config: AlacConfig,
+                   device="cuda") -> list[list[bytes]]:
+    """Host API: (B, N, C, S) planar streams -> per-stream packet lists,
+    byte-identical to the stateful ALACEncoder(config) on each stream.
+    Runs on the card unless ``device`` says otherwise; without a card
+    the default raises."""
+    check_encode_config(config)
+    dev = _resolve_device(device, "encode_streams")
+    pcm = np.asarray(pcm)
+    want = (config.num_channels, config.frame_length)
+    if pcm.ndim != 4 or pcm.shape[2:] != want:
+        raise AlacParamError(f"encode_streams takes (B, N, {want[0]}, "
+                             f"{want[1]}) PCM, not {pcm.shape}")
+    x = torch.from_numpy(pcm.astype(np.int32)).to(dev)
+    words, bits = encode_stream_device(x, config, _num_words(config))
+    words, bits = words.cpu().numpy(), bits.cpu().numpy()
+    return [bitpack.words_to_bytes(words[b], bits[b])
+            for b in range(words.shape[0])]
 
 
 # ---------------------------------------------------------------------------
@@ -953,6 +1072,24 @@ def decode_frames_device(words, config: AlacConfig, num_samples: int,
 # ---------------------------------------------------------------------------
 # host API
 # ---------------------------------------------------------------------------
+def _resolve_device(device, who: str) -> torch.device:
+    """``device`` as a torch.device; raise for a CUDA device without a
+    card: the codec never moves to the CPU by itself."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who}: device {str(dev)!r} requested, but no CUDA device is "
+            "available (torch.cuda.is_available() is false); pass "
+            "device=\"cpu\" to run the plain torch versions")
+    return dev
+
+
+def _num_words(config: AlacConfig) -> int:
+    """Words of a packet's device image: the largest (escape) packet,
+    plus two words of slack."""
+    return (config.max_escape_packet_bytes(config.frame_length) + 3) // 4 + 2
+
+
 class TorchCodec:
     """Batched codec for one AlacConfig on one torch device: encode and
     decode whole chunks of frames per call.  The work runs on the card
@@ -967,17 +1104,11 @@ class TorchCodec:
     def __init__(self, config: AlacConfig, chunk: int = DEFAULT_CHUNK,
                  device="cuda", predict_legacy: bool = False):
         check_encode_config(config)
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"TorchCodec: device {str(self.device)!r} requested, but no "
-                "CUDA device is available (torch.cuda.is_available() is "
-                "false); pass device=\"cpu\" to run the plain torch versions")
+        self.device = _resolve_device(device, type(self).__name__)
         self.config = config
         self.chunk = chunk
         self.predict_legacy = predict_legacy
-        S = config.frame_length
-        self.num_words = (config.max_escape_packet_bytes(S) + 3) // 4 + 2
+        self.num_words = _num_words(config)
         self.fallback_frames = 0   # frames the device flagged -> oracle
 
     def _encode(self, pcm, nums=None):
@@ -1132,14 +1263,48 @@ class TorchCodec:
 _CODEC_CACHE: dict[tuple, TorchCodec] = {}
 
 
+def _lookup_devices(device, devices) -> tuple[torch.device, ...]:
+    """The devices of a codec lookup (alacjax.codec._default_mesh and
+    get_codec): ``devices`` None is every visible card for a "cuda"
+    device without an index, bounded by ALACJAX_DEVICES (read here, at
+    lookup), and ``device`` alone otherwise; an int is that many devices
+    of ``device``'s type (cards from cuda:0, as many as there are;
+    repeated entries for the CPU); a sequence is taken as it is."""
+    dev = torch.device(device)
+    if devices is None:
+        if dev.type != "cuda" or dev.index is not None \
+                or not torch.cuda.is_available():
+            return (dev,)
+        n = torch.cuda.device_count()
+        env = os.environ.get("ALACJAX_DEVICES")
+        if env is not None:
+            n = max(1, min(n, int(env)))
+        return tuple(torch.device("cuda", i) for i in range(n))
+    if isinstance(devices, int):
+        if dev.type != "cuda" or not torch.cuda.is_available():
+            return (dev,) * max(1, devices)
+        n = max(1, min(devices, torch.cuda.device_count()))
+        return tuple(torch.device("cuda", i) for i in range(n))
+    return tuple(torch.device(d) for d in devices)
+
+
 def get_codec(config: AlacConfig, chunk: int = DEFAULT_CHUNK,
-              device="cuda", predict_legacy: bool = False) -> TorchCodec:
-    """Shared-cache codec lookup by (config, chunk, device,
-    predict_legacy)."""
-    key = (config, chunk, str(torch.device(device)), predict_legacy)
+              device="cuda", predict_legacy: bool = False,
+              devices=None) -> TorchCodec:
+    """Shared-cache codec lookup by (config, chunk, devices,
+    predict_legacy).  ``devices`` (see _lookup_devices; None: every
+    visible card, bounded by ALACJAX_DEVICES) of more than one entry
+    give a ShardedCodec over them, one device the plain TorchCodec."""
+    devs = _lookup_devices(device, devices)
+    key = (config, chunk, tuple(map(str, devs)), predict_legacy)
     if key not in _CODEC_CACHE:
-        _CODEC_CACHE[key] = TorchCodec(config, chunk, device=device,
-                                       predict_legacy=predict_legacy)
+        if len(devs) == 1:
+            _CODEC_CACHE[key] = TorchCodec(config, chunk, device=devs[0],
+                                           predict_legacy=predict_legacy)
+        else:
+            from .parallel import ShardedCodec
+            _CODEC_CACHE[key] = ShardedCodec(config, devs, chunk,
+                                             predict_legacy=predict_legacy)
     return _CODEC_CACHE[key]
 
 
@@ -1153,7 +1318,7 @@ def _codec_key_config(config: AlacConfig) -> AlacConfig:
 
 
 def _torch_encode_stream(config: AlacConfig, pcm: np.ndarray,
-                         device="cuda") -> list[bytes]:
+                         device="cuda", devices=None) -> list[bytes]:
     """convert.py backend: planar (C, N) -> packets, full frames AND the
     partial tail in one device batch (per-lane nums; reference:
     ALACEncoder.cpp Encode partial-frame path)."""
@@ -1174,14 +1339,14 @@ def _torch_encode_stream(config: AlacConfig, pcm: np.ndarray,
     if rem:
         frames[nf, :, :rem] = pcm[:, nf * S:]
         nums[nf] = rem
-    codec = get_codec(config, device=device)
+    codec = get_codec(config, device=device, devices=devices)
     if rem:
         return codec.encode_frames_ex(frames, nums)
     return codec.encode_frames(frames)
 
 
 def _torch_decode_stream(config: AlacConfig, packets, num_valid_frames: int,
-                         device="cuda") -> np.ndarray:
+                         device="cuda", devices=None) -> np.ndarray:
     config = _codec_key_config(config)
     S = config.frame_length
     n_full = num_valid_frames // S
@@ -1195,7 +1360,8 @@ def _torch_decode_stream(config: AlacConfig, packets, num_valid_frames: int,
         return out
     # full frames AND the partial tail decode in one device batch
     # (per-lane num mask; reference: ALACDecoder.cpp partialFrame)
-    pcm, nums = get_codec(config, device=device).decode_frames_ex(
+    pcm, nums = get_codec(config, device=device,
+                          devices=devices).decode_frames_ex(
         list(packets[:n_pk]))
     if (nums[:n_full] != S).any():
         raise AlacParamError("unexpected partial frame")

@@ -5,7 +5,9 @@ encode/decode loops (convert-utility/main.cpp; SURVEY.md §3.1/§3.2), with
 a pluggable packet-codec backend: 'oracle' (scalar host reference) or
 'torch' (batched device path, registered by alacjax_torch.codec when
 imported).  Every entry point takes ``device`` (default "cuda"), which
-the torch backend's codec runs on; the oracle ignores it.
+the torch backend's codec runs on, and ``devices`` (default None: every
+visible card), which it splits its frame batches across
+(codec.get_codec); the oracle ignores both.
 """
 
 from __future__ import annotations
@@ -25,15 +27,16 @@ _BACKENDS: dict[str, tuple] = {}
 def register_backend(name: str, encode_stream, decode_stream) -> None:
     """Register a packet-codec backend.
 
-    encode_stream(config, pcm (C,N) int64, device) -> list[bytes] packets
-    decode_stream(config, packets, num_valid_frames, device) -> pcm (C,N)
-    int64
+    encode_stream(config, pcm (C,N) int64, device, devices) -> list[bytes]
+    packets
+    decode_stream(config, packets, num_valid_frames, device, devices) ->
+    pcm (C,N) int64
     """
     _BACKENDS[name] = (encode_stream, decode_stream)
 
 
 def _oracle_encode_stream(config: AlacConfig, pcm: np.ndarray,
-                          device=None) -> list[bytes]:
+                          device=None, devices=None) -> list[bytes]:
     enc = ALACEncoder(config)
     packets = []
     n = pcm.shape[1]
@@ -43,7 +46,7 @@ def _oracle_encode_stream(config: AlacConfig, pcm: np.ndarray,
 
 
 def _oracle_decode_stream(config: AlacConfig, packets, num_valid_frames: int,
-                          device=None) -> np.ndarray:
+                          device=None, devices=None) -> np.ndarray:
     dec = ALACDecoder(config)
     out = []
     remaining = num_valid_frames
@@ -72,7 +75,7 @@ def encode_wav_to_caf(wav: WavFile, frame_length: int = 4096,
                       fast_mode: bool = False, backend: str = "oracle",
                       independent_frames: bool = False,
                       search: str = "standard",
-                      device="cuda") -> CafFile:
+                      device="cuda", devices=None) -> CafFile:
     config = AlacConfig(
         frame_length=frame_length, bit_depth=wav.bit_depth,
         num_channels=wav.num_channels, sample_rate=wav.sample_rate,
@@ -88,7 +91,7 @@ def encode_wav_to_caf(wav: WavFile, frame_length: int = 4096,
         import dataclasses as _dc
         encode_stream, _ = get_backend(backend)
         packets = encode_stream(_dc.replace(config, search="exhaustive"),
-                                pcm, device)
+                                pcm, device, devices)
     elif search == "exhaustive":
         # maximal-rate host path (full-rate trials over every mixres);
         # native C++ if built, scalar oracle otherwise — byte-identical
@@ -108,7 +111,7 @@ def encode_wav_to_caf(wav: WavFile, frame_length: int = 4096,
                    for o in range(0, pcm.shape[1], frame_length)]
     else:
         encode_stream, _ = get_backend(backend)
-        packets = encode_stream(config, pcm, device)
+        packets = encode_stream(config, pcm, device, devices)
 
     # stats for the cookie (maxFrameBytes / avgBitRate like the reference)
     import dataclasses
@@ -129,12 +132,13 @@ def encode_wav_to_caf(wav: WavFile, frame_length: int = 4096,
 
 
 def decode_caf_to_wav(caf: CafFile, backend: str = "oracle",
-                      device="cuda") -> WavFile:
+                      device="cuda", devices=None) -> WavFile:
     config = parse_cookie(caf.cookie)
     if config.num_channels != caf.num_channels:
         raise AlacParamError("cookie/desc channel count mismatch")
     _, decode_stream = get_backend(backend)
-    pcm = decode_stream(config, caf.packets, caf.num_valid_frames, device)
+    pcm = decode_stream(config, caf.packets, caf.num_valid_frames, device,
+                        devices)
     if pcm.shape[1] > caf.num_valid_frames:
         pcm = pcm[:, :caf.num_valid_frames]
     return WavFile(
@@ -145,7 +149,7 @@ def decode_caf_to_wav(caf: CafFile, backend: str = "oracle",
 
 
 def verify_lossless(wav_src, alac_bytes_or_path, backend: str = "oracle",
-                    device="cuda") -> int:
+                    device="cuda", devices=None) -> int:
     """Decode an encoded output back and compare against the source WAV
     sample-for-sample (CLI --check).  Returns the number of samples
     verified; raises AlacParamError on any mismatch."""
@@ -158,7 +162,8 @@ def verify_lossless(wav_src, alac_bytes_or_path, backend: str = "oracle",
         with open(blob, "rb") as f:
             blob = f.read()
     caf = read_caf(blob) if blob[:4] == b"caff" else read_m4a(blob)
-    got = decode_caf_to_wav(caf, backend=backend, device=device)
+    got = decode_caf_to_wav(caf, backend=backend, device=device,
+                            devices=devices)
     back = unpack_pcm(got.data, got.bit_depth, got.num_channels)
     if back.shape != pcm.shape or not (back == pcm).all():
         raise AlacParamError("lossless check FAILED: decoded audio does "
@@ -192,7 +197,7 @@ def convert_bytes(blob: bytes, out_fmt: str, **kw) -> bytes:
         caf = read_caf(blob) if in_fmt == "caf" else read_m4a(blob)
         return write_wav(decode_caf_to_wav(
             caf, backend=kw.get("backend", "oracle"),
-            device=kw.get("device", "cuda")))
+            device=kw.get("device", "cuda"), devices=kw.get("devices")))
     if in_fmt == "caf" and out_fmt == "m4a":
         return write_m4a(read_caf(blob))      # repack, no transcode
     if in_fmt == "m4a" and out_fmt == "caf":
@@ -212,7 +217,8 @@ def convert_file(in_path: str, out_path: str, **kw) -> None:
     lo_in, lo_out = in_path.lower(), out_path.lower()
     m4a = (".m4a", ".mp4")
     dec_kw = dict(backend=kw.get("backend", "oracle"),
-                  device=kw.get("device", "cuda"))
+                  device=kw.get("device", "cuda"),
+                  devices=kw.get("devices"))
     if lo_in.endswith(".wav") and lo_out.endswith(".caf"):
         write_caf(encode_wav_to_caf(read_wav(in_path), **kw), out_path)
     elif lo_in.endswith(".wav") and lo_out.endswith(m4a):

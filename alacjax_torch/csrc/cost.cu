@@ -30,6 +30,11 @@
 //     depend on the residuals alone.  Phases end at a named barrier, so
 //     the per-sample chain is the walk alone, with 3 x n_orders warps
 //     per block (dual) or 2 x n_orders.
+//   - the starting coefficients are one (L, 16) block for every order
+//     (independent frames), or one block per order (persistent banks:
+//     each order walks from its own bank); a stride of 0 or L * 16
+//     words selects the block, so the first case reads what it always
+//     did.
 // PERF.md §6 records what each of the three steps bought on an H100.
 // The order (4 or 8) is a template parameter of each warp's code, so the
 // FIR and the walk unroll and the lag rotation is register renaming;
@@ -42,7 +47,7 @@ constexpr int MAX_ORDERS = 2;
 
 struct CostArgs {
     const int* x;          // (L, S)
-    const int* coefs0;     // (L, 16)
+    const int* coefs0;     // (L, 16), or (n_orders, L, 16): c0_stride
     const int* cb;         // (L,) chanbits
     const int* num;        // (L,) or nullptr (S on every lane)
     int* res;              // (n_orders, L, S)
@@ -50,6 +55,8 @@ struct CostArgs {
     int* cost2;            // (n_orders, L), written when dual
     int* coefs_out;        // (n_orders, L, 16)
     int L, S, denshift;
+    int c0_stride;         // words from one order's coefs0 to the next: 0
+                           // (every order starts from one row) or L * 16
     unsigned mb0, pb;
     int kb;
     unsigned wb;
@@ -197,7 +204,8 @@ __device__ void tiled_warp(Tiles& sm, const CostArgs& a, int o, int role) {
     const bool live = lane < a.L;
     const int S = a.S;
     const int n_tiles = (S + TILE - 1) / TILE;
-    const int* c0 = a.coefs0 + (size_t)(live ? lane : 0) * 16;
+    const int* c0 = a.coefs0 + (size_t)o * a.c0_stride
+                    + (size_t)(live ? lane : 0) * 16;
     const int cb = live ? a.cb[lane] : 16;
     const int n = live && a.num ? a.num[lane] : S;
 
@@ -259,20 +267,25 @@ __global__ void cost_tiled(const CostArgs a) {
 }  // namespace alac
 
 // x: (L, S) int32; orders: n_orders (1 or 2) values, each 4 or 8; cb:
-// (L,) chanbits; num: (L,) sample counts, or nullptr for S on every lane.
+// (L,) chanbits; num: (L,) sample counts, or nullptr for S on every lane;
+// coefs0: (L, 16) for every order (c0_stride 0) or one (L, 16) row block
+// per order (c0_stride L * 16, persistent coefficient banks).
 // Outputs per order: res (L, S), cost1 and cost2 (L,), coefs_out (L, 16).
 extern "C" int alac_cost(const int* x, const int* coefs0, const int* cb,
                          const int* num, int* res, int* cost1, int* cost2,
                          int* coefs_out, int L, int S, int order0,
                          int order1, int n_orders, int dual, int denshift,
-                         unsigned mb0, unsigned pb, int kb, unsigned wb,
+                         int c0_stride, unsigned mb0, unsigned pb, int kb,
+                         unsigned wb,
                          void* stream) {
     const cudaStream_t s = (cudaStream_t)stream;
     if (L <= 0 || S <= 0) return (int)cudaGetLastError();
     if (n_orders < 1 || n_orders > alac::MAX_ORDERS)
         return (int)cudaErrorInvalidValue;
+    if (c0_stride != 0 && c0_stride != L * 16)
+        return (int)cudaErrorInvalidValue;
     alac::CostArgs a{x,  coefs0,   cb,  num, res, cost1, cost2, coefs_out,
-                     L,  S,        denshift, mb0, pb,    kb,    wb,
+                     L,  S,        denshift, c0_stride, mb0, pb, kb, wb,
                      n_orders, {order0, order1}};
     for (int i = 0; i < n_orders; ++i)
         if (a.orders[i] != 4 && a.orders[i] != 8)

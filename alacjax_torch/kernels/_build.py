@@ -34,7 +34,7 @@ _I = ctypes.c_int
 _U = ctypes.c_uint
 # C signatures: name -> argtypes (every function returns int)
 SIGNATURES = {
-    "alac_cost": [_P] * 8 + [_I] * 7 + [_U, _U, _I, _U, _P],
+    "alac_cost": [_P] * 8 + [_I] * 8 + [_U, _U, _I, _U, _P],
     "alac_emit": [_P] * 9 + [_I] * 3 + [_U, _U, _I, _U, _P],
     "alac_predict": [_P] * 5 + [_I] * 4 + [_P],
     "alac_rice_cost": [_P] * 4 + [_I] * 2 + [_U, _U, _I, _U, _P],

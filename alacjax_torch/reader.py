@@ -31,7 +31,7 @@ class AlacReader:
     """
 
     def __init__(self, path_or_bytes, backend: str = "oracle",
-                 chunk: int | None = None, device="cuda"):
+                 chunk: int | None = None, device="cuda", devices=None):
         if isinstance(path_or_bytes, str) and path_or_bytes.lower().endswith(
                 (".m4a", ".mp4")):
             from .containers.mp4 import read_m4a
@@ -48,6 +48,7 @@ class AlacReader:
         self.backend = backend
         self._chunk = chunk  # device frames per launch (torch backend)
         self._device = device
+        self._devices = devices
         self._codec = None   # lazy (torch backend only)
 
     # -- metadata ---------------------------------------------------------
@@ -86,7 +87,8 @@ class AlacReader:
                 )
                 self._codec = get_codec(_codec_key_config(self.config),
                                         self._chunk or DEFAULT_CHUNK,
-                                        device=self._device)
+                                        device=self._device,
+                                        devices=self._devices)
             pcm, nums = self._codec.decode_frames_ex(pkts)
             for i, w in enumerate(want):
                 if nums[i] != w:

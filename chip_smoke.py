@@ -15,8 +15,11 @@ Phases, each of which exits nonzero on failure:
      inputs: every kernel call of one device-resident encode + decode of
      the phase-4 corpus, one call per distinct (taps, chanbits) of the
      phase-5 and phase-6 decodes, and one call per distinct signature of
-     the phase-7 5.1 encode and of the standalone-predictor encodes
-     (phase 8's stereo corpus and the 5.1 corpus) — a new signature's
+     the phase-7 5.1 encode, of the standalone-predictor encodes
+     (phase 8's stereo corpus and the 5.1 corpus) and of one stream
+     step with persistent banks (packet 2 of phase 10's streams, the
+     banks carried from packet 1: the cost kernel with one block of
+     starting coefficients per order) — a new signature's
      call at S = 4096 is compared on its first PREFIX samples (with num
      clamped there), a causal prefix being a whole input of its own, and
      on the whole input, whose time and bound are printed beside — and
@@ -68,8 +71,22 @@ Phases, each of which exits nonzero on failure:
      words_to_bytes / bytes_to_words, container reading and writing),
      for the pipelined host API and, on the same corpus, for the
      unpipelined loop it replaced (``unpipelined_encode_host`` /
-     ``unpipelined_decode_frames_ex``, over the same device calls).
-Each path (phases 4-9) runs with the launch counts set to 0 just before
+     ``unpipelined_decode_frames_ex``, over the same device calls);
+ 10. persistent-bank streams: encode_stream_device of B stereo-16
+     streams of N_STREAM consecutive make_music frames each, then of
+     N51_STREAMS 24-bit 5.1 streams of N51 frames: the first
+     N_NATIVE_STREAMS stereo and N_NATIVE_51 5.1 streams equal the
+     stateful native C++ encoder's packets, packet by packet; some
+     packet differs from the independent-frames encode of the same PCM
+     (the banks are used); every packet decodes losslessly through
+     decode_frames_ex with no frame to the oracle; ms per packet step
+     and frames/s beside phase 4's device-resident encode;
+ 11. the frames axis: ShardedCodec over every visible card (one card is
+     listed twice) on phase 4's batch: the split encode's words and
+     bits, and its decode, equal the unsplit codec's; the host API's
+     packets equal phase 4's and decode losslessly; roundtrip_step is
+     lossless and its total_bytes is the sum of the packets' lengths.
+Each path (phases 4-11) runs with the launch counts set to 0 just before
 it and read just after; a kernel of the path that was not launched
 fails the run.  The line before the last is a JSON object of per-kernel
 results ("launches" sums the paths' counts; "ms", "plain_ms" and
@@ -79,8 +96,9 @@ scans); the last line is the JSON result line.  ``--profile DIR`` also
 writes torch.profiler tables
 of one device-resident encode + decode of phase 4 (DIR/profile.txt), one
 phase-5 decode (DIR/profile_51.txt), the three phase-6 rungs
-(DIR/profile_ladder.txt), one phase-7 5.1 encode (DIR/profile_enc51.txt)
-and one phase-8 encode (DIR/profile_legacy.txt).
+(DIR/profile_ladder.txt), one phase-7 5.1 encode (DIR/profile_enc51.txt),
+one phase-8 encode (DIR/profile_legacy.txt) and one phase-10 stream
+encode (DIR/profile_streams.txt).
 """
 
 import contextlib
@@ -104,6 +122,11 @@ SURROUND_SECONDS = 60    # and one 24-bit 5.1 48 kHz track (703 + 512)
 N_ALBUM_NATIVE = 64      # packets of tracks 1.. held to the native codec
 PREFIX = 1024            # samples of a new signature's phase-3 compare
 RAGGED_EMIT = (4129, 1001)   # (L, S) of phase 3's synthetic emit call
+N_STREAM = 4             # phase 10: packets per stereo-16 stream (B streams)
+N_NATIVE_STREAMS = 64    # stereo streams held to the stateful native encoder
+N51_STREAMS = 512        # phase 10: 24-bit 5.1 streams ...
+N51 = 3                  # ... of 3 packets
+N_NATIVE_51 = 8          # 5.1 streams held to the stateful native encoder
 REPLACES = {
     "cost": "alacjax/ops/pallas/cost_pallas.py:346",
     "emit": "alacjax/ops/pallas/emit_pallas.py:257",
@@ -136,6 +159,8 @@ PATH_KERNELS = {         # the kernels each path must launch
     "phase 7": ("cost", "emit", "merge"),
     "phase 8": ("predict", "rice_cost", "emit", "merge"),
     "phase 9": ("cost", "emit", "merge", "decode"),
+    "phase 10": ("cost", "emit", "merge", "decode"),
+    "phase 11": ("cost", "emit", "merge", "decode"),
 }
 HBM_BYTES_PER_S = 3.35e12    # one H100 SXM's device memory rate
 # Lane operations one Hopper SM issues per clock: four schedulers, each
@@ -486,7 +511,7 @@ def signature(call):
     name, _, _, args, kwargs = call
 
     def part(v):
-        return "lane" if isinstance(v, torch.Tensor) else v
+        return ("lane", v.dim()) if isinstance(v, torch.Tensor) else v
     return ((name, tuple(args[0].shape[1:])) + tuple(map(part, args[1:]))
             + tuple((k, part(v)) for k, v in sorted(kwargs.items())))
 
@@ -526,6 +551,8 @@ def describe(name: str, args, kwargs) -> str:
     parts = []
     if name == "cost":
         parts = [f"orders {args[2]}", f"chanbits {v(args[3])}"]
+        if args[1].dim() == 3:
+            parts.append("coefs0 per order")
     elif name == "predict":
         parts = [f"order {args[2]}", f"chanbits {v(args[3])}"]
     elif name in ("emit", "rice_cost"):
@@ -1344,6 +1371,191 @@ def converter(counts, card: str, kind: str, device: str = "cuda"):
     print(f"  phase 9 took {time.perf_counter() - t_phase} s")
 
 
+def stream_corpus(n_streams: int, n_packets: int, seed: int = 11):
+    """(n_streams, n_packets, 2, S) int32: bench.py make_music cut into
+    consecutive frames, stream b holding frames b * n_packets onwards of
+    one continuous signal."""
+    from bench import make_music
+    return make_music(n_streams * n_packets, S, seed=seed).reshape(
+        n_streams, n_packets, 2, S)
+
+
+def bank_step(cfg, xs):
+    """Packet 2 of every stream of xs ((B, N, C, S) on the card), its
+    banks carried from packet 1 (run here): the call phase 3 records for
+    the per-order cost signature.  Packet 1 starts every bank from the
+    fresh coefficients, so it could not show a bank indexed wrongly."""
+    from alacjax_torch.codec import _encode_packet_chunks, _num_words
+    from alacjax_torch.oracle.encoder import SEARCH_ORDERS
+    from alacjax_torch.state import init_coefs_batched
+    init = init_coefs_batched(xs.shape[0], xs.device)
+    banks = {ch: {od: init for od in SEARCH_ORDERS}
+             for ch in range(cfg.num_channels)}
+    nw = _num_words(cfg)
+    _, _, banks = _encode_packet_chunks(xs[:, 0].contiguous(), cfg, nw,
+                                        banks=banks)
+    return lambda: _encode_packet_chunks(xs[:, 1].contiguous(), cfg, nw,
+                                         banks=banks)
+
+
+def stream_packets(words, bits):
+    """(B, N, W) words and (B, N) bits on the card -> the B * N packets,
+    stream by stream."""
+    from alacjax_torch.ops import bitpack
+    return bitpack.words_to_bytes(
+        words.reshape(-1, words.shape[-1]).cpu().numpy(),
+        bits.reshape(-1).cpu().numpy())
+
+
+def hold_streams_to_native(cfg, pcm, packets, n_streams: int, label: str):
+    """The first n_streams streams' packets against the stateful native
+    C++ encoder (persistent coefficient banks), packet by packet."""
+    from alacjax_torch import native
+    n = pcm.shape[1]
+    for b in range(n_streams):
+        enc = native.NativeEncoder(cfg)
+        for k in range(n):
+            if enc.encode_packet(pcm[b, k]) != packets[b * n + k]:
+                fail(f"phase 10: {label}: stream {b} packet {k} differs "
+                     "from the stateful native C++ encoder's")
+    return n_streams * n
+
+
+def streams(cfg, cfg51, codec, codec51, pcm, counts, main4,
+            device: str = "cuda"):
+    """Phase 10: B stereo-16 streams of N_STREAM packets (pcm, the
+    (B, N, 2, S) stream corpus) and N51_STREAMS 24-bit 5.1 streams of
+    N51 packets through encode_stream_device on the card, every packet
+    decoded back through the host API.  ``device`` other than cuda is
+    for rehearsals."""
+    import numpy as np
+    import torch
+    from alacjax_torch.codec import encode_stream_device
+
+    x = torch.from_numpy(pcm).to(device)
+    n_streams = pcm.shape[0]
+    pcm51 = music_51(N51_STREAMS * N51).reshape(N51_STREAMS, N51, 6, S)
+    x51 = torch.from_numpy(pcm51).to(device)
+    torch.cuda.reset_peak_memory_stats()
+    with path_run("phase 10", counts):
+        t0 = time.perf_counter()
+        words, bits = encode_stream_device(x, cfg, codec.num_words)
+        packets = stream_packets(words, bits)
+        enc_s = time.perf_counter() - t0
+        del words, bits
+        t0 = time.perf_counter()
+        out, nums = codec.decode_frames_ex(packets)
+        dec_s = time.perf_counter() - t0
+        packets51 = stream_packets(*encode_stream_device(x51, cfg51,
+                                                         codec51.num_words))
+        out51, nums51 = codec51.decode_frames_ex(packets51)
+    n_pk = len(packets)
+    if codec.fallback_frames or codec51.fallback_frames:
+        fail(f"phase 10: {codec.fallback_frames + codec51.fallback_frames} "
+             "frames went to the oracle")
+    if not (nums == S).all() or not np.array_equal(
+            out, pcm.reshape(-1, 2, S)):
+        fail("phase 10: the stereo-16 streams do not decode losslessly")
+    if not (nums51 == S).all() or not np.array_equal(
+            out51, pcm51.reshape(-1, 6, S)):
+        fail("phase 10: the 5.1 streams do not decode losslessly")
+    del out, out51
+    held = hold_streams_to_native(cfg, pcm, packets, N_NATIVE_STREAMS,
+                                  "stereo-16")
+    held51 = hold_streams_to_native(cfg51, pcm51, packets51, N_NATIVE_51,
+                                    "24-bit 5.1")
+    indep = codec.encode_frames(pcm[:N_NATIVE_STREAMS].reshape(-1, 2, S))
+    differ = sum(a != b for a, b in zip(packets, indep))
+    if not differ:
+        fail("phase 10: every stream packet equals the independent-frames "
+             "packet: the banks were not used")
+    escapes = sum(bool(p[2] & 0x02) for p in packets)
+    print(f"  {n_pk} stereo-16 packets ({n_streams} streams x "
+          f"{pcm.shape[1]}) and {len(packets51)} 24-bit 5.1 packets "
+          f"({N51_STREAMS} x {N51}) decode losslessly, 0 frames to the "
+          f"oracle; {held} stereo and {held51} 5.1 packets byte-identical "
+          f"to the stateful native C++ encoder; {differ} of the first "
+          f"{len(indep)} differ from the independent-frames encode; "
+          f"{escapes} stereo packets escaped")
+    print(f"  host API: stream encode + serialization {enc_s} s, "
+          f"decode_frames_ex {dec_s} s")
+    iters = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        encode_stream_device(x, cfg, codec.num_words)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / iters / pcm.shape[1]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  device-resident stream encode: {step_s * 1e3} ms per packet "
+          f"step of {n_streams} streams, {n_streams / step_s} frames/s, "
+          f"against phase 4's independent-frames encode "
+          f"{main4['dev_enc_s'] * 1e3} ms per batch of {B} "
+          f"({B / main4['dev_enc_s']} frames/s); peak device memory "
+          f"{peak} GiB")
+    profile(lambda: encode_stream_device(x, cfg, codec.num_words),
+            "profile_streams.txt")
+
+
+def sharded(cfg, pcm, codec, counts, main4, device: str = "cuda"):
+    """Phase 11: phase 4's batch through ShardedCodec over every visible
+    card (a single card listed twice), against the unsplit codec.
+    ``device`` other than cuda is for rehearsals."""
+    import numpy as np
+    import torch
+    from alacjax_torch import ShardedCodec
+
+    n = torch.cuda.device_count() if device == "cuda" else 1
+    devices = ([torch.device(device, i) for i in range(n)] if n > 1
+               else [torch.device(device)] * 2)
+    split = ShardedCodec(cfg, devices, chunk=len(pcm))
+    print(f"  devices: {[str(d) for d in split.devices]}"
+          + ("" if n > 1 else " (one card, listed twice)"), flush=True)
+    x = torch.from_numpy(pcm).to(device)
+    want_w, want_b = codec._encode(x)
+    with path_run("phase 11", counts):
+        words, bits = split._encode(x)
+        dec, err, num = split._decode(words)
+        packets = split.encode_frames(pcm)
+        out, nums = split.decode_frames_ex(packets)
+        rt = split.roundtrip_step(x)
+    if not (torch.equal(words, want_w) and torch.equal(bits, want_b)):
+        fail("phase 11: the split encode's words differ from the unsplit "
+             "codec's")
+    if bool(err.any().item()) or not torch.equal(dec, x) or \
+            not bool((num == S).all().item()):
+        fail("phase 11: the split decode is not lossless")
+    if packets != main4["packets"]:
+        fail("phase 11: the split host API's packets differ from phase 4's")
+    if split.fallback_frames or not (nums == S).all() or \
+            not np.array_equal(out, pcm):
+        fail("phase 11: the split host API's decode is not lossless")
+    decoded, rw, _, total, mismatch, rerr = rt
+    n_bytes = sum(map(len, packets))
+    if int(mismatch.item()) or bool(rerr.any().item()) or \
+            not torch.equal(decoded, x) or not torch.equal(rw, want_w) or \
+            int(total.item()) != n_bytes:
+        fail(f"phase 11: roundtrip_step: mismatch {int(mismatch.item())}, "
+             f"total_bytes {int(total.item())} against {n_bytes}")
+    del dec, out, rt, decoded, rw
+    times = {}
+    for label, c in (("unsplit", codec), ("split", split), ("split", split),
+                     ("unsplit", codec)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w, _ = c._encode(x)
+        c._decode(w)
+        torch.cuda.synchronize()
+        times.setdefault(label, []).append(time.perf_counter() - t0)
+    print(f"  split words and bits equal the unsplit codec's, its decode "
+          f"and the host API's are lossless ({len(packets)} packets equal "
+          f"to phase 4's), roundtrip_step mismatch 0 and total_bytes "
+          f"{n_bytes} = the packets' bytes")
+    print("  device-resident enc+dec s per batch (unsplit, split, split, "
+          f"unsplit): {times['unsplit'][0]}, {times['split'][0]}, "
+          f"{times['split'][1]}, {times['unsplit'][1]}")
+
+
 def profile(fn, name: str):
     """With --profile DIR: a torch.profiler table of one call of fn,
     written to DIR/name."""
@@ -1407,10 +1619,12 @@ def main() -> int:
     pcm = make_music(B, S)
     pcm51, packets51, nums51 = make_51(cfg51)
     pcm_hi, packets_hi = make_hi(cfg)
+    pcm10 = stream_corpus(B, N_STREAM)
     print(f"corpora made in {time.perf_counter() - t0} s: phase 5 tiles "
           f"{N_DISTINCT_51} distinct natively encoded 5.1 frames to {B}, "
           f"phase 6 tiles {N_DISTINCT_HI} distinct forced-order packets "
-          f"to {B}", flush=True)
+          f"to {B}, phase 10 cuts {B} streams of {N_STREAM} frames from one "
+          "signal", flush=True)
     codec = TorchCodec(cfg, chunk=B, device="cuda")
     codec51 = TorchCodec(cfg51, chunk=B, device="cuda")
     x = torch.from_numpy(pcm).to("cuda")
@@ -1441,15 +1655,17 @@ def main() -> int:
                     bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
             for k in REPLACES}
     compare_kernels(calls, rows, int_ops)
-    # the new signatures: per-lane chanbits and num (the 5.1 encode) and
-    # the standalone-predictor route (stereo and 5.1)
+    # the new signatures: per-lane chanbits and num (the 5.1 encode), the
+    # standalone-predictor route (stereo and 5.1) and a stream step with
+    # persistent banks (one block of starting coefficients per order)
     seen = {signature(c) for c in calls}
     del calls
     legacy = TorchCodec(cfg, chunk=B, device="cuda", predict_legacy=True)
     legacy51 = TorchCodec(cfg51, chunk=B, device="cuda", predict_legacy=True)
     new_calls = []
     for run in (lambda: codec51._encode(x51, n51), lambda: legacy._encode(x),
-                lambda: legacy51._encode(x51, n51)):
+                lambda: legacy51._encode(x51, n51),
+                bank_step(cfg, torch.from_numpy(pcm10[:, :2]).to("cuda"))):
         with recording([]) as rec:
             run()
         new_calls += one_per_signature(rec, seen)
@@ -1457,7 +1673,7 @@ def main() -> int:
     compare_kernels(new_calls, rows, int_ops, cut=True)
     # one emit call that ends mid-tile in lanes and in steps
     compare_kernels([ragged_emit_call()], rows, int_ops)
-    del new_calls, legacy, legacy51
+    del new_calls, legacy, legacy51, run
     missing = [k for k, r in rows.items() if r["calls"] == 0]
     if missing:
         fail(f"kernels never compared with their plain versions: {missing}")
@@ -1498,12 +1714,25 @@ def main() -> int:
           f"{kind} ({card})", flush=True)
     legacy, x = predict_legacy_route(cfg, pcm, counts, main4)
     profile(lambda: legacy._encode(x), "profile_legacy.txt")
-    del legacy, x, pcm
+    del legacy, x
 
     # phase 9: the converter
     print(f"phase 9: converter, python -m alacjax_torch.cli on an album on "
           f"{kind} ({card})", flush=True)
     converter(counts, card, kind)
+
+    # phase 10: persistent-bank streams
+    print(f"phase 10: persistent-bank streams, {B} stereo-16 streams of "
+          f"{N_STREAM} frames of {S}, then {N51_STREAMS} 24-bit 5.1 streams "
+          f"of {N51}, on {kind} ({card})", flush=True)
+    streams(cfg, cfg51, codec, codec51, pcm10, counts, main4)
+    del pcm10
+
+    # phase 11: the frames axis across devices
+    print(f"phase 11: ShardedCodec on phase 4's batch of {B} stereo-16 "
+          f"frames on {kind} ({card})", flush=True)
+    sharded(cfg, pcm, codec, counts, main4)
+    del pcm
 
     if "jax" in sys.modules:
         fail("jax was imported")

@@ -92,8 +92,8 @@ def _wav(rng, n=3 * S + 5):
 
 
 def _fake_torch_backend(calls):
-    def enc(config, pcm, device):
-        calls.append((config, device))
+    def enc(config, pcm, device, devices):
+        calls.append((config, device, devices))
         e = ALACEncoder(config, independent_frames=True)
         return [e.encode_packet(pcm[:, o:o + config.frame_length])
                 for o in range(0, pcm.shape[1], config.frame_length)]
@@ -106,9 +106,10 @@ def test_exhaustive_routes_to_device_when_independent(monkeypatch):
                         _fake_torch_backend(calls))
     caf = convert.encode_wav_to_caf(
         _wav(np.random.default_rng(1)), frame_length=S, backend="torch",
-        independent_frames=True, search="exhaustive", device="cpu")
+        independent_frames=True, search="exhaustive", device="cpu",
+        devices=2)
     assert len(calls) == 1 and calls[0][0].search == "exhaustive"
-    assert calls[0][1] == "cpu"
+    assert calls[0][1:] == ("cpu", 2)
     assert len(caf.packets) == 4
 
 

@@ -9,8 +9,8 @@ must be equal and the frames must come back exactly.  This file holds
 20-bit mono and 24-bit SCE+CPE (3 channels); test_torch_layouts_51.py
 holds 24-bit 5.1 and 32-bit stereo.  Also here: the two faults the
 decode of depths above 16 needed fixed (the Rice escape width of a
-24-bit channel, and the shift-byte block), and the encoder's coverage
-of the same layouts (it refuses only persistent coefficient banks).
+24-bit channel, and the shift-byte block), the encoder's coverage of
+the same layouts, and its refusal of a malformed bank table.
 """
 
 import numpy as np
@@ -123,9 +123,8 @@ def test_24bit_shift_bytes_reinserted():
 def test_encode_refuses_a_decode_only_layout(depth, nch):
     """No layout is decode-only any more: the encoder covers every layout
     and depth the decoder does, to the oracle's packets, and the codec
-    decodes them back.  What the encoder still refuses is persistent
-    coefficient banks (alacjax's stream encode), which it does not
-    port."""
+    decodes them back.  What the encoder refuses is a bank table that
+    does not hold every channel's banks (here, none at all)."""
     cfg = AlacConfig(bit_depth=depth, num_channels=nch, frame_length=64)
     codec = TorchCodec(torch_config(cfg), chunk=2, device="cpu")
     pcm = np.zeros((2, nch, 64), np.int32)

@@ -459,6 +459,59 @@ def test_51_encode_on_card(cuda, predict_legacy):
     assert packets == [enc.encode_packet(f[:, :n]) for f, n in zip(pcm, nums)]
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("orders,dual", [((4, 8), True), ((8,), False)])
+def test_cost_kernel_per_order_coefs_on_card(cuda, orders, dual):
+    """With one (L, 16) block of starting coefficients per order (the
+    persistent banks), each order walks from its own block: the kernel
+    equals its plain version."""
+    rng = np.random.default_rng(300 + len(orders))
+    x, _ = _small_inputs(rng, L=96, S=300)
+    c0 = torch.from_numpy(rng.integers(-400, 400, (len(orders), 96, 16))
+                          .astype(np.int32))
+    cb, num = _lane_args(rng, 96, 300)
+    got = k_cost.pc_block_cost2(x.to(cuda), c0.to(cuda), orders, cb.to(cuda),
+                                9, *RICE, dual=dual, num=num.to(cuda))
+    _same(got, k_cost.plain(x, c0, orders, cb, 9, *RICE, dual=dual, num=num))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast", [False, True])
+def test_stream_encode_on_card(cuda, fast):
+    """encode_streams on the card equals the stateful oracle on every
+    packet, with an element that escapes mid-stream."""
+    from alacjax_torch import encode_streams
+    from alacjax_torch.oracle import ALACEncoder
+    cfg = AlacConfig(bit_depth=16, num_channels=2, frame_length=256,
+                     fast_mode=fast)
+    rng = np.random.default_rng(77)
+    pcm = np.stack([np.stack([_music(rng, 2, 256) for _ in range(4)])
+                    for _ in range(5)])
+    pcm[1, 2] = rng.integers(-32768, 32768, (2, 256))      # escapes
+    got = encode_streams(pcm, cfg)
+    for b, stream in enumerate(pcm):
+        enc = ALACEncoder(cfg)
+        assert got[b] == [enc.encode_packet(p) for p in stream], b
+
+
+@pytest.mark.cuda
+def test_sharded_codec_on_card(cuda):
+    """The frames axis with the card listed twice: the same packets and
+    samples as the one-device codec."""
+    from alacjax_torch import ShardedCodec
+    cfg = AlacConfig(bit_depth=16, num_channels=2, frame_length=256)
+    pcm = np.stack([_music(np.random.default_rng(b), 2, 256)
+                    for b in range(9)])
+    plain = TorchCodec(cfg, chunk=4, device=cuda)
+    sharded = ShardedCodec(cfg, [cuda, cuda], chunk=3)
+    packets = plain.encode_frames(pcm)
+    assert sharded.encode_frames(pcm) == packets
+    out, nums = sharded.decode_frames_ex(packets)
+    assert (nums == 256).all() and np.array_equal(out, pcm)
+    _, _, _, total, mismatch, _ = sharded.roundtrip_step(pcm)
+    assert int(total) == sum(map(len, packets)) and int(mismatch) == 0
+
+
 # ---------------------------------------------------------------------------
 # the cost and decode kernels at the main path's widths against their plain
 # versions: ragged (33) and full (4096) lane counts, short and full frames
