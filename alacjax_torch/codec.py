@@ -168,25 +168,23 @@ def _price(xs, c0s, orders, chanbits, num, config, dual: bool,
     block per order (persistent banks).  The default route is ONE launch
     of the fused cost kernel for every order.  ``predict_legacy`` is the
     standalone-predictor route (alacjax/ops/predict.py:328-332 and
-    :375-381): per order the predictor kernel, then the Rice cost of its
-    residuals and, for stage 2, of their first difference; the cost
-    kernel is not launched."""
+    :375-381): one predictor launch for every order, then one Rice cost
+    launch over every order's residuals stacked as (n L, S), which
+    prices, for stage 2, their first difference too; the cost kernel is
+    not launched."""
     mb0, pb, kb, wb = _rice_params_static(config)
     if predict_legacy:
-        res, c1, c2, coefs = [], [], [], []
-        for i, od in enumerate(orders):
-            r, c = k_predict.pc_block(xs, c0s[i] if c0s.dim() == 3 else c0s,
-                                      od, chanbits, DENSHIFT_DEFAULT)
-            res.append(r)
-            coefs.append(c)
-            c1.append(k_predict.rice_cost(r, chanbits, mb0, pb, kb, wb,
-                                          num=num))
-            if dual:
-                c2.append(k_predict.rice_cost(
-                    predict.wrap_diff(r, chanbits), chanbits, mb0, pb, kb,
-                    wb, num=num))
-        return (torch.stack(res), torch.stack(c1),
-                torch.stack(c2) if dual else None, torch.stack(coefs))
+        res, coefs = k_predict.pc_block(xs, c0s, tuple(orders), chanbits,
+                                        DENSHIFT_DEFAULT)
+        n, L, S = res.shape
+        cb = (chanbits if isinstance(chanbits, int)
+              else chanbits.repeat(n).contiguous())
+        cost = k_predict.rice_cost(res.reshape(n * L, S), cb, mb0, pb, kb,
+                                   wb, num=None if num is None
+                                   else _tile_lanes(num, n), dual=dual)
+        if dual:
+            return res, cost[0].reshape(n, L), cost[1].reshape(n, L), coefs
+        return res, cost.reshape(n, L), None, coefs
     res, c1, c2, coefs = k_cost.pc_block_cost2(
         xs, c0s, orders, chanbits, DENSHIFT_DEFAULT, mb0, pb, kb, wb,
         dual=dual, num=num)

@@ -36,8 +36,8 @@ _U = ctypes.c_uint
 SIGNATURES = {
     "alac_cost": [_P] * 8 + [_I] * 8 + [_U, _U, _I, _U, _P],
     "alac_emit": [_P] * 9 + [_I] * 3 + [_U, _U, _I, _U, _P],
-    "alac_predict": [_P] * 5 + [_I] * 4 + [_P],
-    "alac_rice_cost": [_P] * 4 + [_I] * 2 + [_U, _U, _I, _U, _P],
+    "alac_predict": [_P] * 6 + [_I] * 7 + [_P],
+    "alac_rice_cost": [_P] * 4 + [_I] * 3 + [_U, _U, _I, _U, _P],
     "alac_merge": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "alac_decode": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                     _I, _I, _I, _I, _U, _I, _U, _P],

@@ -63,8 +63,9 @@ def as_i32_bits(x):
 def sign_extend(x, bits):
     """Sign-extend the low ``bits`` bits of ``x``.  ``bits`` is an int or
     a per-lane tensor with fewer dims than ``x`` (broadcast on the
-    leading axes).  C idiom: ``(x << (32-bits)) >> (32-bits)``.
-    Returns int64."""
+    leading axes).  C idiom: ``(x << (32-bits)) >> (32-bits)``; past 32
+    bits its shift is negative, and alacjax's shifts (XLA's) give 0
+    there, as csrc/predict.cu's clamping PTX shifts do.  Returns int64."""
     x = x.to(I64)
     if not isinstance(bits, int):
         bits = torch.as_tensor(bits, dtype=I64, device=x.device)
@@ -73,7 +74,10 @@ def sign_extend(x, bits):
     one = torch.ones((), dtype=I64, device=x.device)
     mask = (one << bits) - 1
     sign = one << (bits - 1)
-    return ((x & mask) ^ sign) - sign
+    out = ((x & mask) ^ sign) - sign
+    if isinstance(bits, int):
+        return out if bits <= 32 else torch.zeros_like(out)
+    return torch.where(bits <= 32, out, 0)
 
 
 def sign_of_int(x):

@@ -24,10 +24,17 @@ Phases, each of which exits nonzero on failure:
      clamped there), a causal prefix being a whole input of its own, and
      on the whole input, whose time and bound are printed beside — and
      one synthetic emit call whose lanes and steps end mid-tile
-     (RAGGED_EMIT); the results must be exactly equal; each call's bound
-     is printed beside (see ``work``: bytes at 3.35 TB/s or the
-     operations the function needs at the SMs' issue rate, whichever is
-     longer);
+     (RAGGED_EMIT); the standalone-predictor route's calls are one
+     predictor launch for every order of a pass and one Rice cost
+     launch pricing every order's residuals and, stage 2, their first
+     difference (``dual``); then tests/torch_predict_cases.py's
+     tile-edge inputs through both of those kernels (every order, per-
+     lane chanbits 16..33 and num, L 33 and 67, S 1..100); the results
+     must be exactly equal; each call's bound is printed beside (see
+     ``work``: bytes at 3.35 TB/s or the operations the function needs
+     at the SMs' issue rate, whichever is longer), and each predictor
+     call's walker warps' clock64 cycles per step, with those times S
+     over the SM clock (the per-lane chain);
   4. the main path: TorchCodec encode_frames -> decode_frames_ex on the
      bench corpus (bench.py :: make_music, B=4096 frames of 16-bit
      stereo, S=4096): lossless, no frame flagged, the first 256 packets
@@ -53,8 +60,9 @@ Phases, each of which exits nonzero on failure:
      every packet byte-identical to the native C++ encoder's;
   8. the standalone-predictor route: phase 4's corpus encoded with
      predict_legacy=True: every packet equal to phase 4's, the predict
-     and rice_cost kernels launched and the cost kernel never; its
-     device-resident encode seconds beside phase 4's;
+     and rice_cost kernels launched (rice_cost at most 3 times for the
+     one encode) and the cost kernel never; its device-resident encode
+     seconds beside phase 4's;
   9. the converter: an album written as WAV files to a temporary
      directory (ALBUM_TRACKS stereo-16 44.1 kHz tracks of TRACK_SECONDS
      from make_music, and one 24-bit 5.1 48 kHz track of SURROUND_SECONDS
@@ -367,11 +375,14 @@ def work(call, got, counts):
         machine_samples = len(orders) * machines * n
         ops += RICE_PRICE * coded + RICE_IDLE * (machine_samples - coded)
     elif name == "predict":
-        od = a["order"]
-        ops += L * max(S - od - 1, 0) * (FIR_PER_TAP * od + FIR_FIXED)
+        orders = a["order"] if isinstance(a["order"], tuple) else (a["order"],)
+        ops += sum(L * max(S - od - 1, 0) * (FIR_PER_TAP * od + FIR_FIXED)
+                   for od in orders)
     else:
         per = RICE_EMIT if name == "emit" else RICE_PRICE
-        ops += per * coded + RICE_IDLE * (n - coded)
+        machines = 2 if a.get("dual") else 1
+        ops += (per * coded + RICE_IDLE * (machines * n - coded)
+                + (machines - 1) * DIFF_STAGE * n)
     return moved, ops, L * S
 
 
@@ -555,12 +566,16 @@ def describe(name: str, args, kwargs) -> str:
             parts.append("coefs0 per order")
     elif name == "predict":
         parts = [f"order {args[2]}", f"chanbits {v(args[3])}"]
+        if args[1].dim() == 3:
+            parts.append("coefs0 per order")
     elif name in ("emit", "rice_cost"):
         parts = [f"bit_size {v(args[1])}"]
     elif name in ("decode", "decode_hi"):
         parts = [f"taps {kwargs['taps']}", f"chanbits {v(args[3])}"]
     if name == "cost":
         parts.append(f"dual {kwargs.get('dual', True)}")
+    if name == "rice_cost" and kwargs.get("dual"):
+        parts.append("dual")
     if name in ("cost", "emit", "rice_cost") and \
             kwargs.get("num") is not None:
         parts.append("num lane")
@@ -656,6 +671,80 @@ def ragged_emit_call(seed: int = 5):
     args = (dev[0], dev[1], MB0, PB0, KB0, (1 << KB0) - 1, dev[2])
     return ("emit", emit.rice_encode_words, emit.plain, args,
             dict(bit_size_cap=21, num=dev[3]))
+
+
+def predict_tile_edges(rows, repo: str):
+    """Phase 3: the predictor and Rice cost kernels on the tile-edge
+    inputs of tests/torch_predict_cases.py, each call exactly equal to
+    its plain version: every order, two to a launch with a block of
+    starting coefficients each, and the Rice pass single and dual, with
+    and without num."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.join(repo, "tests"))
+    from torch_predict_cases import (
+        CASES, ORDER_PAIRS, predict_lanes, rice_lanes,
+    )
+    from alacjax_torch.kernels import predict as kp
+    from alacjax_torch.types import DENSHIFT_DEFAULT, KB0, MB0, PB0
+    rice_args = (MB0, PB0, KB0, (1 << KB0) - 1)
+    n = dict(predict=0, rice_cost=0)
+    for L, S in CASES:
+        rng = np.random.default_rng(L * 1000 + S)
+        x, cb, c0 = (torch.from_numpy(v).to("cuda")
+                     for v in predict_lanes(rng, L, S))
+        for pair in ORDER_PAIRS:
+            err = max_abs_err(
+                kp.pc_block(x, c0, pair, cb, DENSHIFT_DEFAULT),
+                kp.plain_pc_block(x, c0, pair, cb, DENSHIFT_DEFAULT))
+            rows["predict"]["max_abs_err"] = max(
+                rows["predict"]["max_abs_err"], err)
+            if err:
+                fail(f"predict kernel disagrees with its plain version on "
+                     f"the tile-edge case L={L} S={S} orders {pair}")
+            n["predict"] += 1
+        r, bs, num = (torch.from_numpy(v).to("cuda")
+                      for v in rice_lanes(rng, L, S))
+        for dual in (False, True):
+            for nm in (None, num):
+                got = kp.rice_cost(r, bs, *rice_args, num=nm, dual=dual)
+                want = kp.plain_rice_cost(r, bs, *rice_args, num=nm,
+                                          dual=dual)
+                err = max_abs_err((got,), (want,))
+                rows["rice_cost"]["max_abs_err"] = max(
+                    rows["rice_cost"]["max_abs_err"], err)
+                if err:
+                    fail(f"rice_cost kernel disagrees with its plain version"
+                         f" on the tile-edge case L={L} S={S} dual {dual}")
+                n["rice_cost"] += 1
+    print(f"  tile edges: {n['predict']} predict calls (L 33 and 67 by S "
+          "1, 31, 32, 33, 65 and 100; orders 1..16, two to a launch) and "
+          f"{n['rice_cost']} rice_cost calls (single and dual, with and "
+          "without num), per-lane chanbits 16..33: max_abs_err 0",
+          flush=True)
+
+
+def walker_cycles(calls, clock_hz: float):
+    """Phase 3: each predictor call once more with its walker warps'
+    clock64 cycles inside the walk, printed per order as cycles per step
+    (mean and most over the warps) and the most times S over the SM
+    clock: the per-lane chain, in ms."""
+    import torch
+    for name, wrapper, _, args, kwargs in calls:
+        if name != "predict":
+            continue
+        x, order = args[0], args[2]
+        orders = order if isinstance(order, tuple) else (order,)
+        L, S = x.shape
+        cyc = torch.zeros((len(orders), -(-L // 32)), dtype=torch.int64,
+                          device="cuda")
+        wrapper(*args, **kwargs, cycles=cyc)
+        per = cyc.double() / S
+        for i, od in enumerate(orders):
+            worst = per[i].max().item()
+            print(f"  walker cycles per step, order {od} on {L}x{S}: mean "
+                  f"{per[i].mean().item():.1f}, most {worst:.1f} (x S / "
+                  f"clock: {worst * S / clock_hz * 1e3:.4f} ms)", flush=True)
 
 
 @contextlib.contextmanager
@@ -964,6 +1053,10 @@ def predict_legacy_route(cfg, pcm, counts, main):
         enc_s = time.perf_counter() - t0
     if counts["phase 8"]["cost"]:
         fail("phase 8: the cost kernel ran on the predict_legacy route")
+    if counts["phase 8"]["rice_cost"] > 3:
+        fail(f"phase 8: {counts['phase 8']['rice_cost']} rice_cost launches "
+             "for one encode (at most 3: the trial and the search's one "
+             "dual call)")
     bad = [i for i in range(len(pcm)) if packets[i] != main["packets"][i]]
     if bad:
         fail(f"phase 8: {len(bad)} packets differ from phase 4's "
@@ -1671,8 +1764,10 @@ def main() -> int:
         new_calls += one_per_signature(rec, seen)
         del rec
     compare_kernels(new_calls, rows, int_ops, cut=True)
+    walker_cycles(new_calls, clock)
     # one emit call that ends mid-tile in lanes and in steps
     compare_kernels([ragged_emit_call()], rows, int_ops)
+    predict_tile_edges(rows, repo)
     del new_calls, legacy, legacy51, run
     missing = [k for k, r in rows.items() if r["calls"] == 0]
     if missing:

@@ -34,6 +34,8 @@ from alacjax_torch.oracle.encoder import PB_FACTOR
 from alacjax_torch.state import init_coefs_batched
 from alacjax_torch.types import DENSHIFT_DEFAULT, AlacConfig, KB0, MB0, PB0
 from torch_emit_cases import CAP, TILE_EDGE_S, emit_lanes
+from torch_predict_cases import CASES as PREDICT_CASES
+from torch_predict_cases import ORDER_PAIRS, predict_lanes, rice_lanes
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "alacjax_torch"
@@ -362,39 +364,44 @@ def _lane_args(rng, L, S):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("order", [1, 2, 4, 7, 8, 12, 16])
-def test_predict_kernel_on_card(cuda, order):
-    """Every static-order instance of the standalone predictor, with an
-    int and a per-lane chanbits, equals the plain pc_block."""
-    rng = np.random.default_rng(100 + order)
-    x, c0 = _small_inputs(rng, L=96, S=300)
-    cb, _ = _lane_args(rng, 96, 300)
-    for chanbits in (17, cb):
+@pytest.mark.parametrize("L,S", list(PREDICT_CASES) + [(4096, 1024)])
+def test_predict_kernel_on_card(cuda, L, S):
+    """The standalone predictor at the edges of its tiles and at a wide
+    shape: every static order, two to a launch with one block of
+    starting coefficients each and per-lane chanbits 16..33, and each
+    order alone with an int chanbits, equals the plain version."""
+    x, cb, c0 = (torch.from_numpy(v).to(cuda) for v in predict_lanes(
+        np.random.default_rng(L * 1000 + S), L, S))
+    for pair in ORDER_PAIRS:
         kernels.reset_launches()
-        got = k_predict.pc_block(x.to(cuda), c0.to(cuda), order,
-                                 chanbits if isinstance(chanbits, int)
-                                 else chanbits.to(cuda), 9)
+        got = k_predict.pc_block(x, c0, pair, cb, 9)
         assert kernels.LAUNCHES["predict"] == 1
-        _same(got, predict.pc_block(x, c0, order, chanbits, 9))
+        _same(got, k_predict.plain_pc_block(x, c0, pair, cb, 9))
+        _same(k_predict.pc_block(x, c0[0], pair, cb, 9),
+              k_predict.plain_pc_block(x, c0[0], pair, cb, 9))
+    for order in k_predict.ORDERS:
+        _same(k_predict.pc_block(x, c0[0], order, 17, 9),
+              predict.pc_block(x, c0[0], order, 17, 9))
 
 
 @pytest.mark.cuda
-def test_rice_cost_kernel_on_card(cuda):
-    """The cost-only Rice pass with and without num, at an int and a
-    per-lane bit size, equals the plain rice_cost."""
-    rng = np.random.default_rng(7)
-    x, _ = _small_inputs(rng, L=96, S=300)
-    x[1] = torch.from_numpy(rng.integers(-2, 3, 300).astype(np.int32))
-    x[2, 100:] = 0
-    cb, num = _lane_args(rng, 96, 300)
-    for bit_size in (17, cb):
+@pytest.mark.parametrize("L,S", list(PREDICT_CASES) + [(4096, 1024)])
+def test_rice_cost_kernel_on_card(cuda, L, S):
+    """The cost-only Rice pass, single and dual, with and without num, at
+    an int and a per-lane bit size (16..33), equals the plain version at
+    the edges of its tiles and at a wide shape."""
+    r, bs, num = (torch.from_numpy(v).to(cuda) for v in rice_lanes(
+        np.random.default_rng(L * 1000 + S), L, S))
+    for bit_size in (17, bs):
         for n in (None, num):
-            got = k_predict.rice_cost(
-                x.to(cuda), bit_size if isinstance(bit_size, int)
-                else bit_size.to(cuda), *RICE,
-                num=None if n is None else n.to(cuda))
-            want = rice.rice_cost(x, bit_size, *RICE, num=n)
-            assert torch.equal(got.cpu(), want)
+            for dual in (False, True):
+                kernels.reset_launches()
+                got = k_predict.rice_cost(r, bit_size, *RICE, num=n,
+                                          dual=dual)
+                assert kernels.LAUNCHES["rice_cost"] == 1
+                want = k_predict.plain_rice_cost(r, bit_size, *RICE, num=n,
+                                                 dual=dual)
+                assert torch.equal(got.cpu(), want.cpu())
 
 
 @pytest.mark.cuda

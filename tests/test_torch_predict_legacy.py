@@ -162,6 +162,14 @@ def test_legacy_route_skips_the_cost_kernel(routes):
     assert calls["predict"] >= 1 and calls["rice_cost"] >= 1
 
 
+def test_legacy_route_prices_each_pass_in_one_launch(routes):
+    """One predictor call for every order of a pass (the stereo trial,
+    the search) and one Rice cost call for its residuals and, stage 2,
+    their first difference: at most two of each per encode."""
+    calls = routes["calls"]
+    assert 1 <= calls["predict"] == calls["rice_cost"] <= 2
+
+
 def test_get_codec_keys_on_the_route():
     cfg = torch_config(make_config(16, 2))
     a = get_codec(cfg, chunk=4, device="cpu", predict_legacy=True)
