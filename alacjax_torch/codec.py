@@ -28,7 +28,13 @@ per element: header parse (static offsets for a single-element packet,
 else one window aligned to the element's per-lane start) -> chained
 channel decodes (decode kernel at 8, 16 or 30 taps; channel c+1 starts
 where channel c ends) -> unmix -> shift-byte re-insert -> escape select;
-the next element starts where this one ends.
+the next element starts where this one ends.  With ``stacked`` (alacjax's
+ALACJAX_DECODE_STACKED=1, here an argument): the parse and one Rice
+cursor launch per channel but the last chain the starts, then one
+stacked decode launch covers every channel, then each element's unmix,
+shift bytes and escape select.  ``stop_at`` cuts either program at
+alacjax's profiling points (encode "mix", "search", "rice", "assemble";
+decode "params", "scan", "nounesc").
 
 Each ``lax.cond`` of the reference is a Python ``if`` on a flag read
 back from the device, one readback for all of the flags known at the
@@ -62,7 +68,7 @@ from .kernels import decode as k_decode
 from .kernels import emit as k_emit
 from .kernels import merge as k_merge
 from .kernels import predict as k_predict
-from .ops import bitpack, fused_decode, matrix, predict
+from .ops import bitpack, fused_decode, matrix, predict, rice
 from .ops.tutils import I32, I64, MASK32, as_i32_bits, iota1, sign_extend, u32
 from .state import init_coefs_batched
 from .utils.metrics import stage_annotation
@@ -298,11 +304,12 @@ def _search_channels(streams, chanbits_list, config, nums=None,
 
 
 def _select_standard(elems, config, nums, predict_legacy: bool,
-                     banks=None) -> None:
+                     banks=None, mix_only: bool = False) -> None:
     """Stereo mode of every CPE (the dilated trial, or fast mode's
-    constant; both with fresh coefficients), then one search over every
-    channel of every element, each channel's orders starting from its
-    banks when ``banks`` is given."""
+    constant; both with fresh coefficients), the mixed streams of every
+    element (``e["streams"]``; ``mix_only`` stops there), then one search
+    over every channel of every element, each channel's orders starting
+    from its banks when ``banks`` is given."""
     B = elems[0]["chans"][0].shape[0]
     dev = elems[0]["chans"][0].device
     cpes = [e for e in elems if e["is_cpe"]]
@@ -319,12 +326,16 @@ def _select_standard(elems, config, nums, predict_legacy: bool,
     streams, cbs = [], []
     for e in elems:
         if e["is_cpe"]:
-            streams += matrix.mix(e["his"][0], e["his"][1], DEFAULT_MIX_BITS,
-                                  e["mixres"][:, None])
+            e["streams"] = list(matrix.mix(e["his"][0], e["his"][1],
+                                           DEFAULT_MIX_BITS,
+                                           e["mixres"][:, None]))
         else:
             e["mixres"] = torch.zeros((B,), dtype=I64, device=dev)
-            streams.append(e["his"][0])
+            e["streams"] = [e["his"][0]]
+        streams += e["streams"]
         cbs += [e["chanbits"]] * e["width"]
+    if mix_only:
+        return
     stream_banks = None if banks is None else [
         banks[e["ch0"] + i] for e in elems for i in range(e["width"])]
     res, orders, modes, rice_bits, c0_win, adapted = _search_channels(
@@ -522,9 +533,12 @@ def _header_stream(e, bs: int, nums, S: int):
     return _emit_header(hv, hl, e["start"], cap)
 
 
+ENCODE_CUTS = ("mix", "search", "rice", "assemble")   # _encode_packet_chunks
+
+
 def _encode_packet_chunks(pcm, config: AlacConfig, num_words: int,
                           nums=None, predict_legacy: bool = False,
-                          banks=None):
+                          banks=None, stop_at: str | None = None):
     """(B, C, S) int32 planar -> ((B, W) int32 word image, (B,) int32
     total bits, new banks): the general branch of alacjax's
     _encode_packet_chunks.
@@ -542,8 +556,21 @@ def _encode_packet_chunks(pcm, config: AlacConfig, num_words: int,
     blocks, cost and emission machines stopped at nums.
     ``predict_legacy`` prices the trial and the search through the
     standalone predictor kernel and the Rice cost kernel instead of the
-    fused cost kernel: the same packets."""
+    fused cost kernel: the same packets.
+
+    ``stop_at`` cuts the program for profiling, returning what alacjax's
+    _encode_packet_chunks returns at the same cut: "mix" each element's
+    mixed streams (a list per element; the exhaustive search has no
+    such point and runs on, as in alacjax); "search" (each element's
+    winning residual streams, the total bits before the END tag);
+    "rice" (the stacked Rice emission's chunk words, keys, tail values
+    and tail keys, the same total); "assemble" (every element's chunk
+    words and keys, the tail values and keys with the END tag's, the
+    total bits), all before the merge."""
     check_encode_config(config)
+    if stop_at is not None and stop_at not in ENCODE_CUTS:
+        raise ValueError(f"stop_at must be one of {ENCODE_CUTS}, got "
+                         f"{stop_at!r}")
     B = pcm.shape[0]
     if banks is not None:
         _check_banks(banks, config, B)
@@ -577,7 +604,10 @@ def _encode_packet_chunks(pcm, config: AlacConfig, num_words: int,
     if config.search == "exhaustive" and not config.fast_mode:
         _select_exhaustive(elems, config, nums, predict_legacy)
     else:
-        _select_standard(elems, config, nums, predict_legacy, banks)
+        _select_standard(elems, config, nums, predict_legacy, banks,
+                         mix_only=stop_at == "mix")
+        if stop_at == "mix":
+            return [e["streams"] for e in elems]
 
     # ---- per-element header / escape sizing; chained element starts ----
     n_lane = S if nums is None else nums
@@ -614,6 +644,8 @@ def _encode_packet_chunks(pcm, config: AlacConfig, num_words: int,
                     upd[od] = torch.where(take[:, None], coefs,
                                           banks[chan][od])
                 new_banks[chan] = upd
+    if stop_at == "search":
+        return [e["res"] for e in elems], total_c
 
     # one readback: every lane of every element escaped, then per element
     # whether any lane escaped
@@ -625,20 +657,26 @@ def _encode_packet_chunks(pcm, config: AlacConfig, num_words: int,
 
     # ---- one stacked Rice emission over every channel ----
     emitted = None
+    cbs = [e["chanbits"] for e in elems for _ in range(e["width"])]
     if any_comp:
-        feed, starts, cbs = [], [], []
+        feed, starts = [], []
         for e in elems:
             pos = e["rice_start"]
             for ci in range(e["width"]):
                 feed.append(e["res"][ci])
                 starts.append(pos)
-                cbs.append(e["chanbits"])
                 pos = pos + e["rice_bits"][ci]
         with stage_annotation("rice_words"):
             emitted = k_emit.rice_encode_words(
                 torch.cat(feed, dim=0), _lane_chanbits(cbs, B, dev), mb0, pb,
                 kb, wb, torch.cat(starts, dim=0).to(I32),
                 bit_size_cap=max(cbs), num=_tile_lanes(nums, len(feed)))
+    elif stop_at in ("rice", "assemble"):
+        # alacjax's skip_rice: empty chunks where every lane escaped
+        emitted = _skipped_emission(len(cbs) * B, S, max(cbs), dev)
+    if stop_at == "rice":
+        cw, ck, _, ctv, ctk = emitted
+        return cw, ck, ctv, ctk, total_c
 
     # ---- END tag (3 bits) at the known end position: pure tails ----
     phase = total_c & 31
@@ -647,6 +685,10 @@ def _encode_packet_chunks(pcm, config: AlacConfig, num_words: int,
     end_tv = [end_hi, end_lo]
     end_tk = [total_c >> 5, torch.where(phase > 29, (total_c >> 5) + 1, MASK32)]
     total_bits = (total_c + 3).to(I32)
+    if stop_at == "assemble":
+        vals, keys, tv, tk = _mixed_chunks(elems, emitted, config, nums,
+                                           pad_to_escape=True)
+        return vals, keys, tv + end_tv, tk + end_tk, total_bits
 
     with stage_annotation("assemble"):
         if any_comp:
@@ -658,12 +700,39 @@ def _encode_packet_chunks(pcm, config: AlacConfig, num_words: int,
     return words, total_bits, new_banks
 
 
+def _skipped_emission(L: int, S: int, cap: int, device):
+    """rice_encode_words's outputs where no stream is emitted: zero
+    words, empty (-1) keys and tails."""
+    words = torch.zeros((L, rice.emit_slots(cap) * (S + 1)), dtype=I32,
+                        device=device)
+    lane = torch.zeros((L,), dtype=I32, device=device)
+    return words, words - 1, lane, lane, lane - 1
+
+
+def _esc_width(e, depth: int, nums, S: int) -> int:
+    """Word columns of _esc_stream's chunks: the header image and the
+    placed raw block."""
+    cap = 23 + (0 if nums is None else 32)
+    return (31 + cap + 31) // 32 + (e["width"] * S * depth + 31) // 32 + 1
+
+
 def _assemble_mixed(elems, emitted, end_tv, end_tk, config, nums,
                     num_words: int):
-    """Chunk assembly when some lane compressed (mixed_chunks): per
-    element, the header tokens, the shift-byte block and the Rice chunks
-    of its channels, with the per-element escape select; then the merge
-    kernel."""
+    """Chunk assembly when some lane compressed: _mixed_chunks, then the
+    merge kernel."""
+    vals, keys, tail_v, tail_k = _mixed_chunks(elems, emitted, config, nums)
+    return k_merge.merge_sorted_chunks(
+        vals, keys, as_i32_bits(torch.stack(tail_v + end_tv, dim=1)),
+        as_i32_bits(torch.stack(tail_k + end_tk, dim=1)), num_words)
+
+
+def _mixed_chunks(elems, emitted, config, nums, pad_to_escape: bool = False):
+    """alacjax's mixed_chunks: per element, the header tokens, the
+    shift-byte block and the Rice chunks of its channels, with the
+    per-element escape select.  Returns (vals, keys) int32 bit patterns
+    and the lists of tail values and keys.  ``pad_to_escape`` widens
+    every element's chunks to its escape stream's width, as alacjax
+    does (the "assemble" cut); the merge does not need it."""
     S = config.frame_length
     depth = config.bit_depth
     bs = bytes_shifted_for_depth(depth)
@@ -692,6 +761,9 @@ def _assemble_mixed(elems, emitted, end_tv, end_tk, config, nums,
         vals = torch.cat(seg_v, dim=1)
         keys = torch.cat(seg_k, dim=1)
         ue = e["use_escape"]
+        if pad_to_escape and not e["any_escape"]:
+            T = max(vals.shape[1], _esc_width(e, depth, nums, S))
+            vals, keys = _pad_cols(vals, T, 0), _pad_cols(keys, T, -1)
         if e["any_escape"]:
             vals_e, keys_e, tv_e, tk_e = _esc_stream(e, depth, nums, S)
             T = max(vals.shape[1], vals_e.shape[1])
@@ -709,10 +781,8 @@ def _assemble_mixed(elems, emitted, end_tv, end_tk, config, nums,
         all_keys.append(keys)
         tail_v += tv_c
         tail_k += tk_c
-    return k_merge.merge_sorted_chunks(
-        torch.cat(all_vals, dim=1), torch.cat(all_keys, dim=1),
-        as_i32_bits(torch.stack(tail_v + end_tv, dim=1)),
-        as_i32_bits(torch.stack(tail_k + end_tk, dim=1)), num_words)
+    return (torch.cat(all_vals, dim=1), torch.cat(all_keys, dim=1), tail_v,
+            tail_k)
 
 
 def _assemble_all_escape(elems, end_tv, end_tk, config, nums,
@@ -988,28 +1058,86 @@ def _shift_bytes(words, pos_shift, width: int, S: int, bs: int):
     return [sf[:, :, ci] for ci in range(width)]
 
 
+DECODE_CUTS = ("params", "scan", "nounesc")   # decode_frames_device stop_at
+
+
+def _element_pcm(words_i32, w, p, recon, width: int, is_cpe: bool,
+                 config: AlacConfig, S: int, fast_hdr: bool, all_esc: bool,
+                 any_esc: bool, unescape: bool = True):
+    """One element's (B, S) channels from its reconstructed streams
+    ``recon``: unmix (CPE), shift-byte re-insert, and the escape select
+    (skipped without ``unescape``, the "nounesc" cut); an all-escape
+    element has no streams."""
+    B = words_i32.shape[0]
+    dev = words_i32.device
+    depth = config.bit_depth
+    bs = bytes_shifted_for_depth(depth)
+    if all_esc:
+        dec = [torch.zeros((B, S), dtype=I32, device=dev)] * width
+    else:
+        dec = recon
+        if is_cpe:
+            dec = list(matrix.unmix(dec[0], dec[1], p["mixbits"][:, None],
+                                    p["mixres"][:, None]))
+        if bs:
+            shifts = _shift_bytes(words_i32, p["pos_shift"], width, S, bs)
+            dec = [matrix.shift_in(r, sh, bs) for r, sh in zip(dec, shifts)]
+    if any_esc and unescape:
+        esc = p["esc"]
+        raws = (_unescape_fast(w, depth, width, S, p["partial"])
+                if fast_hdr else
+                _unescape_window(words_i32, p["pos_esc"], depth, width, S))
+        dec = [torch.where(esc[:, None], raws[ci].to(I32), dec[ci])
+               for ci in range(width)]
+    return dec
+
+
 def decode_frames_device(words, config: AlacConfig, num_samples: int,
-                         taps: int = fused_decode.TAPS):
+                         taps: int = fused_decode.TAPS, stacked: bool = False,
+                         stop_at: str | None = None):
     """(B, W) int32 word image -> ((B, C, S) int32 pcm, (B,) bool err,
-    (B,) int32 num): the chained branch of
-    alacjax.codec.decode_frames_device, every layout and depth.  ``taps``
-    (8, 16 or 30) is the width of the channel scans' FIR walk; lanes
-    with a higher order flag err."""
+    (B,) int32 num): alacjax.codec.decode_frames_device, every layout and
+    depth.  ``taps`` (8, 16 or 30) is the width of the channel scans'
+    FIR walk; lanes with a higher order flag err.
+
+    Chained (the default): channel c + 1's decode starts where channel
+    c's ends.  ``stacked``: alacjax's cursor+stacked two-pass
+    (codec.py:1248-1285, :1372-1420): pass A parses every element and
+    chains the channels' starts with one cursor launch per channel but
+    the last (none for an element whose every lane escaped); pass B
+    decodes every channel in ONE stacked launch (lane l on packet row
+    l % B, channels in order), then each element's unmix, shift bytes
+    and escape select.  The same pcm, err and num.
+
+    ``stop_at`` cuts the program for profiling (alacjax's cuts; it runs
+    the chained program): "params" returns (the first element's
+    per-channel (mode, den, pbf, order, coefs), (Rice start bits, err))
+    after its parse; "scan" (its channels' reconstructed streams, (end
+    bits, err)) after its channel decodes; "nounesc" the whole decode
+    without the escape samples."""
+    if stop_at is not None:
+        if stop_at not in DECODE_CUTS:
+            raise ValueError(f"stop_at must be one of {DECODE_CUTS}, got "
+                             f"{stop_at!r}")
+        stacked = False
     B = words.shape[0]
     dev = words.device
     S = num_samples
     depth = config.bit_depth
     kb = config.kb
+    wb = (1 << kb) - 1
     bs = bytes_shifted_for_depth(depth)
     # the parse accepts orders up to the walk's width, never below 16
     max_ord = max(kALACMaxCoefs, taps)
     fast_hdr = len(config.elements) == 1
+    n_total = sum(width for _, width in config.elements)
     words_i32 = words.to(I32).contiguous()
     w = u32(words_i32)
     bitpos = torch.zeros((B,), dtype=I64, device=dev)
     err = torch.zeros((B,), dtype=torch.bool, device=dev)
     num = None
     out_ch = []
+    chans, elems = [], []       # stacked: per channel, per element
     for ei, (tag, width) in enumerate(config.elements):
         is_cpe = width == 2
         p = _parse_element(w, bitpos, num, tag, width, config, S, max_ord,
@@ -1018,6 +1146,8 @@ def decode_frames_device(words, config: AlacConfig, num_samples: int,
         err = err | p["err"]
         chanbits = depth - 8 * bs + (1 if is_cpe else 0)
         bitpos = p["rice"]
+        if stop_at == "params":
+            return p["params"], (bitpos, err)
         # one readback per element; the packet's sample count is the
         # first element's, so whether any lane is partial is known here
         flags = [esc.all(), esc.any()] + ([(num < S).any()] if ei == 0
@@ -1025,40 +1155,68 @@ def decode_frames_device(words, config: AlacConfig, num_samples: int,
         all_esc, any_esc, *first = torch.stack(flags).tolist()
         if first:
             any_partial = first[0]
+        num_i32 = num.to(I32).contiguous()
 
-        if all_esc:
-            dec = [torch.zeros((B, S), dtype=I32, device=dev)] * width
-        else:
-            # chained channel scans: channel c+1 starts where channel c ends
-            num_i32 = num.to(I32).contiguous()
-            recon = []
+        if stacked:
+            # pass A: chain the channel starts with the cursor
             for ci in range(width):
-                pb, coefs, mode, order, den = _channel_args(p, ci, config)
-                samples, bitpos_n, rerr = k_decode.decode_channel(
-                    words_i32, bitpos.to(I32).contiguous(), S, chanbits,
-                    config.mb, pb, kb, (1 << kb) - 1, coefs, mode, order,
-                    den, num=num_i32, taps=taps)
-                bitpos = torch.where(esc, bitpos, bitpos_n.to(I64))
-                err = err | (~esc & rerr)
-                recon.append(samples)
-            if is_cpe:
-                recon = list(matrix.unmix(recon[0], recon[1],
-                                          p["mixbits"][:, None],
-                                          p["mixres"][:, None]))
-            if bs:
-                shifts = _shift_bytes(words_i32, p["pos_shift"], width, S, bs)
-                recon = [matrix.shift_in(r, sh, bs)
-                         for r, sh in zip(recon, shifts)]
-            dec = recon
-
-        if any_esc:
-            raws = (_unescape_fast(w, depth, width, S, p["partial"])
-                    if fast_hdr else
-                    _unescape_window(words_i32, p["pos_esc"], depth, width, S))
-            dec = [torch.where(esc[:, None], raws[ci].to(I32), dec[ci])
-                   for ci in range(width)]
-        out_ch.extend(dec)
+                args = _channel_args(p, ci, config)
+                chans.append((bitpos, chanbits, esc) + args)
+                if len(chans) < n_total and not all_esc:
+                    end, cerr = k_decode.cursor_scan(
+                        words_i32, bitpos.to(I32).contiguous(), S, chanbits,
+                        config.mb, args[0], kb, wb, skip=esc, num=num_i32)
+                    err = err | (~esc & cerr)
+                    bitpos = torch.where(esc, bitpos, end.to(I64))
+            elems.append((p, width, is_cpe, all_esc, any_esc))
+        else:
+            recon = None
+            if not all_esc:
+                # chained channel scans: channel c+1 starts where channel
+                # c ends
+                recon = []
+                for ci in range(width):
+                    pb, coefs, mode, order, den = _channel_args(p, ci,
+                                                                config)
+                    samples, bitpos_n, rerr = k_decode.decode_channel(
+                        words_i32, bitpos.to(I32).contiguous(), S, chanbits,
+                        config.mb, pb, kb, wb, coefs, mode, order, den,
+                        num=num_i32, taps=taps)
+                    bitpos = torch.where(esc, bitpos, bitpos_n.to(I64))
+                    err = err | (~esc & rerr)
+                    recon.append(samples)
+            if stop_at == "scan":
+                if recon is None:
+                    recon = [torch.zeros((B, S), dtype=I32, device=dev)
+                             ] * width
+                return recon, (bitpos, err)
+            out_ch.extend(_element_pcm(
+                words_i32, w, p, recon, width, is_cpe, config, S, fast_hdr,
+                all_esc, any_esc, unescape=stop_at != "nounesc"))
         bitpos = torch.where(esc, p["pos_esc"] + width * depth * num, bitpos)
+
+    if stacked:
+        # pass B: every channel in one stacked launch
+        samples_all = None
+        if not all(e[3] for e in elems):
+            def cat(i):
+                return torch.cat([c[i] for c in chans]).contiguous()
+            cbs = [c[1] for c in chans]
+            samples_all, _, rerr = k_decode.decode_channel(
+                words_i32, cat(0).to(I32), S, _lane_chanbits(cbs, B, dev),
+                config.mb, cat(3), kb, wb, cat(4), cat(5), cat(6), cat(7),
+                num=_tile_lanes(num, n_total), taps=taps,
+                chanbits_max=max(cbs))
+            err = err | (~cat(2) & rerr).reshape(n_total, B).any(dim=0)
+        ci0 = 0
+        for p, width, is_cpe, all_esc, any_esc in elems:
+            recon = (None if all_esc else
+                     [samples_all[(ci0 + ci) * B:(ci0 + ci + 1) * B]
+                      for ci in range(width)])
+            ci0 += width
+            out_ch.extend(_element_pcm(words_i32, w, p, recon, width, is_cpe,
+                                       config, S, fast_hdr, all_esc,
+                                       any_esc))
 
     pcm = torch.stack(out_ch, dim=1)
     if any_partial:
@@ -1097,15 +1255,20 @@ class TorchCodec:
     moves to the CPU by itself.  ``predict_legacy`` runs the encoder's
     trial and search through the standalone predictor kernel and the
     Rice cost kernel instead of the fused cost kernel (alacjax's
-    ALACJAX_PALLAS_PREDICT_LEGACY=1): the same packets."""
+    ALACJAX_PALLAS_PREDICT_LEGACY=1): the same packets.
+    ``decode_stacked`` decodes through the cursor+stacked two-pass
+    (decode_frames_device's ``stacked``, alacjax's ALACJAX_DECODE_STACKED=1)
+    instead of the chained channel decodes: the same PCM."""
 
     def __init__(self, config: AlacConfig, chunk: int = DEFAULT_CHUNK,
-                 device="cuda", predict_legacy: bool = False):
+                 device="cuda", predict_legacy: bool = False,
+                 decode_stacked: bool = False):
         check_encode_config(config)
         self.device = _resolve_device(device, type(self).__name__)
         self.config = config
         self.chunk = chunk
         self.predict_legacy = predict_legacy
+        self.decode_stacked = decode_stacked
         self.num_words = _num_words(config)
         self.fallback_frames = 0   # frames the device flagged -> oracle
 
@@ -1119,7 +1282,8 @@ class TorchCodec:
     def _decode(self, words, taps: int = fused_decode.TAPS):
         """(B, W) int32 device tensor -> (pcm, err, num) tensors."""
         return decode_frames_device(words, self.config,
-                                    self.config.frame_length, taps=taps)
+                                    self.config.frame_length, taps=taps,
+                                    stacked=self.decode_stacked)
 
     def encode_frames(self, pcm: np.ndarray) -> list[bytes]:
         """(nf, C, S) planar int -> list of nf packets (full frames)."""
@@ -1288,21 +1452,25 @@ def _lookup_devices(device, devices) -> tuple[torch.device, ...]:
 
 def get_codec(config: AlacConfig, chunk: int = DEFAULT_CHUNK,
               device="cuda", predict_legacy: bool = False,
-              devices=None) -> TorchCodec:
+              devices=None, decode_stacked: bool = False) -> TorchCodec:
     """Shared-cache codec lookup by (config, chunk, devices,
-    predict_legacy).  ``devices`` (see _lookup_devices; None: every
-    visible card, bounded by ALACJAX_DEVICES) of more than one entry
-    give a ShardedCodec over them, one device the plain TorchCodec."""
+    predict_legacy, decode_stacked).  ``devices`` (see _lookup_devices;
+    None: every visible card, bounded by ALACJAX_DEVICES) of more than
+    one entry give a ShardedCodec over them, one device the plain
+    TorchCodec."""
     devs = _lookup_devices(device, devices)
-    key = (config, chunk, tuple(map(str, devs)), predict_legacy)
+    key = (config, chunk, tuple(map(str, devs)), predict_legacy,
+           decode_stacked)
     if key not in _CODEC_CACHE:
         if len(devs) == 1:
             _CODEC_CACHE[key] = TorchCodec(config, chunk, device=devs[0],
-                                           predict_legacy=predict_legacy)
+                                           predict_legacy=predict_legacy,
+                                           decode_stacked=decode_stacked)
         else:
             from .parallel import ShardedCodec
             _CODEC_CACHE[key] = ShardedCodec(config, devs, chunk,
-                                             predict_legacy=predict_legacy)
+                                             predict_legacy=predict_legacy,
+                                             decode_stacked=decode_stacked)
     return _CODEC_CACHE[key]
 
 

@@ -30,10 +30,23 @@ __device__ __forceinline__ int wsub(int a, int b) { return (int)((unsigned)a - (
 __device__ __forceinline__ int wmul(int a, int b) { return (int)((unsigned)a * (unsigned)b); }
 __device__ __forceinline__ int wneg(int a) { return (int)(0u - (unsigned)a); }
 
-// (x << (32-bits)) >> (32-bits): low `bits` bits, sign-extended
+// (x << (32-bits)) >> (32-bits): low `bits` bits, sign-extended, at a
+// width known to lie in 1..32 (16 for the coefficients); a per-lane
+// width goes through sext_sh
 __device__ __forceinline__ int sext(int x, int bits) {
     int sh = 32 - bits;
     return (int)((unsigned)x << sh) >> sh;
+}
+
+// sext at a per-lane width, the shift sh = 32 - bits given: the C idiom
+// with PTX's shifts, which clamp an amount past 31.  A width of 33 (one
+// past a 32-bit channel) gives 0, as alacjax's XLA shifts and the plain
+// versions do; sext's C shifts would be undefined there.
+__device__ __forceinline__ int sext_sh(int x, unsigned sh) {
+    int r;
+    asm("{\n\t.reg .b32 t;\n\tshl.b32 t, %1, %2;\n\tshr.s32 %0, t, %2;\n\t}"
+        : "=r"(r) : "r"(x), "r"(sh));
+    return r;
 }
 
 __device__ __forceinline__ int sign_of(int x) { return (x > 0) - (x < 0); }

@@ -70,7 +70,8 @@ template <int NA>
 struct Walker {
     int lags[NA + 1];
     int coefs[NA];
-    int den, denhalf, chanbits;
+    int den, denhalf;
+    unsigned sh;           // 32 - chanbits: sext_sh's shift
 
     __device__ __forceinline__ void init(const int* c0, int denshift,
                                          int cb) {
@@ -80,7 +81,7 @@ struct Walker {
         for (int k = 0; k < NA; ++k) coefs[k] = c0[k];
         den = denshift < 1 ? 1 : denshift;
         denhalf = 1 << (den - 1);
-        chanbits = cb;
+        sh = 32u - (unsigned)cb;
     }
 
     // sample t -> its residual
@@ -96,9 +97,9 @@ struct Walker {
         if (t == 0)
             out = x_t;
         else if (in_warm)
-            out = sext(wsub(x_t, lags[0]), chanbits);
+            out = sext_sh(wsub(x_t, lags[0]), sh);
         else
-            out = sext(wsub(wsub(x_t, top), pred_adj), chanbits);
+            out = sext_sh(wsub(wsub(x_t, top), pred_adj), sh);
 
         // sign-sign adaptation; the walk stops acting at the first tap
         // whose step flips the error's side (dp_enc.c early exit)
@@ -136,6 +137,7 @@ template <bool DIFF>
 struct Pricer {
     RiceState st;
     int tot, prev, n, chanbits;
+    unsigned sh;           // 32 - chanbits: sext_sh's shift
     unsigned pb, wb;
     int kb;
 
@@ -146,6 +148,7 @@ struct Pricer {
         prev = 0;
         n = n_lane;
         chanbits = cb;
+        sh = 32u - (unsigned)cb;
         pb = a.pb;
         kb = a.kb;
         wb = a.wb;
@@ -156,7 +159,7 @@ struct Pricer {
         int rb, vl;
         int v = out;
         if (DIFF) {
-            v = t == 0 ? out : sext(wsub(out, prev), chanbits);
+            v = t == 0 ? out : sext_sh(wsub(out, prev), sh);
             prev = out;
         }
         tot += rice_step(st, v, t, n, chanbits, pb, kb, wb, rv, rb, vv, vl);

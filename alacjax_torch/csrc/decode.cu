@@ -1,16 +1,29 @@
 // Fused channel decode: adaptive-Rice codewords and zero runs, the
 // mode != 0 first-difference stage and the TAPS-wide adaptive FIR, one
-// sample per substep, a whole channel per launch.  One source, three
-// instances: TAPS = 8 (the production program), 16 and 30 (the codec's
-// retry ladder; 30 covers every legal 5-bit order).
+// sample per substep, a whole channel (or, stacked, every channel of a
+// packet) per launch.  One source, three instances of the full decode:
+// TAPS = 8 (the production program), 16 and 30 (the codec's retry
+// ladder; 30 covers every legal 5-bit order); and two of the Rice warp
+// alone: the cursor (end bits and err only, no samples: the first pass
+// of the stacked multichannel decode) and the raw decode (the signed
+// residuals, no FIR).
 //
 // Replaces, at TAPS = 8: alacjax/ops/pallas/decode_step.py :: _step_kernel
 // (pallas_call in decode_step_pallas, one launch per scan step of G
 // substeps plus the cache shift).  At TAPS = 16 and 30:
 // alacjax/ops/pallas/decode_pallas.py :: _decode_kernel (the whole-loop
 // decode at a static tap count with per-lane chanbits, decode_pallas.py
-// :381).  Plain version: alacjax_torch/ops/fused_decode.py ::
-// decode_channel.
+// :381).  The cursor instance replaces alacjax/ops/fused_decode.py ::
+// cursor_scan (an XLA scan, :337), the raw instance the raw=True mode of
+// its decode_channel behind alacjax/ops/rice.py :: rice_decode (:427).
+// Plain versions: alacjax_torch/ops/fused_decode.py :: decode_channel
+// (raw=False and raw=True) and cursor_scan.
+//
+// Lanes and rows.  Lane l reads packet row l % rows of the (rows, W)
+// word image: rows = L for one channel, rows = B for a stacked launch
+// whose L = n_ch * B lanes are the packet's channels, channel-major
+// (alacjax/codec.py:1410), each with its own start bit, chanbits and
+// parameters.  The image is read in place, not repeated per channel.
 //
 // Bound: the per-lane serial bit cursor (each codeword's position depends
 // on every earlier length) and the FIR recurrence, so the latency of one
@@ -31,12 +44,22 @@
 // per cut, indices clamped to the image: past W-1 reads word W-1, below 0
 // word 0), which a warp's rows mostly find in L1.  The FIR warp fills a
 // 32-lane x 32-sample shared tile (pitch 33: no bank conflicts either
-// way) and stores it to (B, S) row by row, 128 coalesced bytes per store.
+// way) and stores it to (L, S) row by row, 128 coalesced bytes per store.
 // PERF.md §6 records the steps measured on the way, among them a bit
 // reservoir in registers that was slower than the direct reads.
 // chanbits is per lane (a stacked batch may mix SCE and CPE channels of
-// several depths).  End bits and the error flag (zero-run overrun, or an
-// order the walk does not cover) come out per lane.
+// several depths); the sign extensions at that width go through sext_sh,
+// so a width of 33 gives 0 as alacjax does.  End bits and the error flag
+// (zero-run overrun, or an order the walk does not cover) come out per
+// lane.
+//
+// The cursor and raw instances are one warp per block of 32 lanes, the
+// Rice warp alone: the cursor walks each lane's codewords and writes its
+// end bit (a `skip` lane does not move: its end is its start) and err
+// (the zero-run overrun; it walks no FIR, so no order to flag); the raw
+// decode also stages its residuals in a 32 x 32 shared tile and stores
+// them to (L, S) row by row, as the FIR warp does.  Their bound is the
+// Rice chain alone (the codeword lengths' serial dependence).
 #include "common.cuh"
 
 namespace alac {
@@ -44,20 +67,21 @@ namespace alac {
 constexpr int MAX_TAPS = 30;
 
 struct DecodeArgs {
-    const unsigned* words;          // (B, W)
-    const int* start_bits;          // (B,)
-    const int* chanbits;            // (B,)
-    const int* pb;                  // (B,)
-    const int* coefs0;              // (B, coef_n)
+    const unsigned* words;          // (rows, W): lane l reads row l % rows
+    const int* start_bits;          // (L,)
+    const int* chanbits;            // (L,)
+    const int* pb;                  // (L,)
+    const int* coefs0;              // (L, coef_n)
     int coef_n;
-    const int* mode;                // (B,)
-    const int* numactive;           // (B,)
-    const int* denshift;            // (B,)
-    const int* num;                 // (B,) or nullptr (S on every lane)
-    int* samples;                   // (B, S)
-    int* end_bits;                  // (B,)
-    int* err;                       // (B,)
-    int B, W, S;
+    const int* mode;                // (L,)
+    const int* numactive;           // (L,)
+    const int* denshift;            // (L,)
+    const int* num;                 // (L,) or nullptr (S on every lane)
+    const int* skip;                // (L,) or nullptr: cursor lanes that stay
+    int* samples;                   // (L, S): samples, or residuals (raw)
+    int* end_bits;                  // (L,)
+    int* err;                       // (L,)
+    int L, rows, W, S;
     unsigned mb0;
     int kb;
     unsigned wb;
@@ -111,7 +135,8 @@ struct RiceDec {
 
     __device__ __forceinline__ void init(const DecodeArgs& a, int lane,
                                          int n) {
-        bits.init(a.words + (size_t)lane * a.W, a.W, a.start_bits[lane]);
+        bits.init(a.words + (size_t)(lane % a.rows) * a.W, a.W,
+                  a.start_bits[lane]);
         mb = a.mb0;
         zmode = 0u;
         run_rem = 0u;
@@ -193,7 +218,8 @@ struct RiceDec {
 template <int TAPS>
 struct Fir {
     int lags[TAPS + 1], coefs[TAPS];
-    int cb, na_k, den, c, n_eff, s1_acc, acc31;
+    int na_k, den, c, n_eff, s1_acc, acc31;
+    unsigned sh;                    // 32 - chanbits: sext_sh's shift
     bool mode_nz, is0, is31;
 
     __device__ __forceinline__ void init(const DecodeArgs& a, int lane,
@@ -205,7 +231,7 @@ struct Fir {
         mode_nz = a.mode[lane] != 0;
         is0 = na == 0;
         is31 = na == 31;
-        cb = a.chanbits[lane];
+        sh = 32u - (unsigned)a.chanbits[lane];
         c = 0;
         n_eff = n;
         s1_acc = 0;
@@ -221,7 +247,7 @@ struct Fir {
     __device__ __forceinline__ int step(int res) {
         const bool active = c < n_eff;
         const int s1_acc2 = active ? wadd(s1_acc, res) : s1_acc;
-        const int x_t = mode_nz ? sext(s1_acc2, cb) : res;
+        const int x_t = mode_nz ? sext_sh(s1_acc2, sh) : res;
         int top = 0;
 #pragma unroll
         for (int j = 0; j <= TAPS; ++j)
@@ -237,9 +263,9 @@ struct Fir {
         if (c == 0)
             out = x_t;
         else if (in_warm)
-            out = sext(wadd(x_t, lags[0]), cb);
+            out = sext_sh(wadd(x_t, lags[0]), sh);
         else
-            out = sext(wadd(wadd(x_t, top), pred_adj), cb);
+            out = sext_sh(wadd(wadd(x_t, top), pred_adj), sh);
 
         // sign-sign adaptation from the last tap down, in place: tap kk's
         // coefficient is read only by its own step of this walk
@@ -264,7 +290,7 @@ struct Fir {
         if (is0)
             out = x_t;
         else if (is31)
-            out = sext(acc31_2, cb);
+            out = sext_sh(acc31_2, sh);
         if (active) {
 #pragma unroll
             for (int j = TAPS; j > 0; --j) lags[j] = lags[j - 1];
@@ -277,14 +303,14 @@ struct Fir {
     }
 };
 
-// One warp stores a [lane][sample] tile of its 32 lanes to (B, S), row by
+// One warp stores a [lane][sample] tile of its 32 lanes to (L, S), row by
 // row: cnt consecutive samples of one lane per store instruction.
 __device__ __forceinline__ void store_rows(const int (*tile)[PITCH],
                                            const DecodeArgs& a, int lane0,
                                            int t0, int cnt, int lid) {
     if (lid >= cnt) return;
     int* base = a.samples + t0 + lid;
-    for (int r = 0; r < 32 && lane0 + r < a.B; ++r)
+    for (int r = 0; r < 32 && lane0 + r < a.L; ++r)
         base[(size_t)(lane0 + r) * a.S] = tile[r][lid];
 }
 
@@ -295,7 +321,7 @@ __global__ void decode_kernel(const DecodeArgs a) {
     __shared__ int otile[TILE][PITCH];
     const int warp = threadIdx.x >> 5, lid = threadIdx.x & 31;
     const int lane0 = blockIdx.x * 32, lane = lane0 + lid;
-    const bool live = lane < a.B;
+    const bool live = lane < a.L;
     const int ln = live ? lane : 0;         // a dead lane reads lane 0 ...
     const int n_eff = !live ? 0 : (a.num ? a.num[ln] : a.S);  // ... never
     const int S = a.S;
@@ -336,31 +362,80 @@ __global__ void decode_kernel(const DecodeArgs a) {
     }
 }
 
+// The Rice warp alone, one per block: each lane's end bit and err.
+__global__ void cursor_kernel(const DecodeArgs a) {
+    const int lane = blockIdx.x * 32 + threadIdx.x;
+    if (lane >= a.L) return;
+    const int n_eff = (a.skip && a.skip[lane]) ? 0
+                      : (a.num ? a.num[lane] : a.S);
+    RiceDec r;
+    r.init(a, lane, n_eff);
+    const int steps = min(n_eff, a.S);     // past it every substep idles
+    for (int t = 0; t < steps; ++t) r.next();
+    a.end_bits[lane] = r.bits.bitpos;
+    a.err[lane] = r.err ? 1 : 0;
+}
+
+// The Rice warp alone, one per block: each lane's signed residuals to
+// (L, S) through a shared tile, and its end bit and err.
+__global__ void raw_kernel(const DecodeArgs a) {
+    __shared__ int otile[TILE][PITCH];
+    const int lid = threadIdx.x;
+    const int lane0 = blockIdx.x * 32, lane = lane0 + lid;
+    const bool live = lane < a.L;
+    const int ln = live ? lane : 0;
+    const int n_eff = !live ? 0 : (a.num ? a.num[ln] : a.S);
+    RiceDec r;
+    r.init(a, ln, n_eff);
+    for (int t0 = 0; t0 < a.S; t0 += TILE) {
+        const int cnt = min(TILE, a.S - t0);
+        for (int j = 0; j < cnt; ++j) otile[lid][j] = r.next();
+        __syncwarp();
+        store_rows(otile, a, lane0, t0, cnt, lid);
+        __syncwarp();
+    }
+    if (live) {
+        a.end_bits[lane] = r.bits.bitpos;
+        a.err[lane] = r.err ? 1 : 0;
+    }
+}
+
 template <int TAPS>
 int launch(const DecodeArgs& a, cudaStream_t st) {
-    decode_kernel<TAPS><<<(a.B + 31) / 32, 64, 0, st>>>(a);
+    decode_kernel<TAPS><<<(a.L + 31) / 32, 64, 0, st>>>(a);
     return (int)cudaGetLastError();
+}
+
+// the arguments every instance checks: a lane's row, the image, and
+// chanbits_max in 1..33 (33: a width one past a 32-bit channel)
+static int check(int L, int rows, int W, int chanbits_max) {
+    if (W <= 0 || rows <= 0 || L % rows != 0 || chanbits_max < 1
+        || chanbits_max > 33)
+        return (int)cudaErrorInvalidValue;
+    return 0;
 }
 
 }  // namespace alac
 
 // taps selects the instance (8, 16 or 30); every lane's chanbits must lie
-// in 1..chanbits_max, and chanbits_max in 1..32.
+// in 1..chanbits_max, and chanbits_max in 1..33.  Lane l of the L lanes
+// reads row l % rows of the (rows, W) image (rows = L: one row per lane;
+// rows = B: a stacked launch of L / B channels).
 extern "C" int alac_decode(const int* words, const int* start_bits,
                            const int* chanbits, const int* pb,
                            const int* coefs0, int coef_n, const int* mode,
                            const int* numactive, const int* denshift,
                            const int* num, int* samples, int* end_bits,
-                           int* err, int B, int W, int S, int taps,
+                           int* err, int L, int rows, int W, int S, int taps,
                            int chanbits_max, unsigned mb0, int kb,
                            unsigned wb, void* stream) {
-    if (B <= 0 || S <= 0) return (int)cudaGetLastError();
-    if (W <= 0 || coef_n < 0 || chanbits_max < 1 || chanbits_max > 32)
-        return (int)cudaErrorInvalidValue;
+    if (L <= 0 || S <= 0) return (int)cudaGetLastError();
+    if (coef_n < 0) return (int)cudaErrorInvalidValue;
+    if (const int bad = alac::check(L, rows, W, chanbits_max)) return bad;
     const alac::DecodeArgs a{(const unsigned*)words, start_bits, chanbits,
                              pb, coefs0, coef_n, mode, numactive, denshift,
-                             num, samples, end_bits, err, B, W, S, mb0, kb,
-                             wb};
+                             num, nullptr, samples, end_bits, err, L, rows,
+                             W, S, mb0, kb, wb};
     const cudaStream_t st = (cudaStream_t)stream;
     switch (taps) {
         case 8: return alac::launch<8>(a, st);
@@ -368,4 +443,41 @@ extern "C" int alac_decode(const int* words, const int* start_bits,
         case 30: return alac::launch<30>(a, st);
         default: return (int)cudaErrorInvalidValue;
     }
+}
+
+// The cursor: (L,) end bits and err of S-sample Rice streams (num: (L,)
+// sample counts or nullptr; skip: (L,) lanes that stay, or nullptr).
+extern "C" int alac_decode_cursor(const int* words, const int* start_bits,
+                                  const int* chanbits, const int* pb,
+                                  const int* skip, const int* num,
+                                  int* end_bits, int* err, int L, int rows,
+                                  int W, int S, int chanbits_max,
+                                  unsigned mb0, int kb, unsigned wb,
+                                  void* stream) {
+    if (L <= 0 || S <= 0) return (int)cudaGetLastError();
+    if (const int bad = alac::check(L, rows, W, chanbits_max)) return bad;
+    const alac::DecodeArgs a{(const unsigned*)words, start_bits, chanbits,
+                             pb, nullptr, 0, nullptr, nullptr, nullptr,
+                             num, skip, nullptr, end_bits, err, L, rows, W,
+                             S, mb0, kb, wb};
+    alac::cursor_kernel<<<(L + 31) / 32, 32, 0, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+// The raw decode: (L, S) signed residuals, (L,) end bits and err;
+// chanbits is the escape payload width.
+extern "C" int alac_decode_raw(const int* words, const int* start_bits,
+                               const int* chanbits, const int* pb,
+                               const int* num, int* res, int* end_bits,
+                               int* err, int L, int rows, int W, int S,
+                               int chanbits_max, unsigned mb0, int kb,
+                               unsigned wb, void* stream) {
+    if (L <= 0 || S <= 0) return (int)cudaGetLastError();
+    if (const int bad = alac::check(L, rows, W, chanbits_max)) return bad;
+    const alac::DecodeArgs a{(const unsigned*)words, start_bits, chanbits,
+                             pb, nullptr, 0, nullptr, nullptr, nullptr,
+                             num, nullptr, res, end_bits, err, L, rows, W,
+                             S, mb0, kb, wb};
+    alac::raw_kernel<<<(L + 31) / 32, 32, 0, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
 }

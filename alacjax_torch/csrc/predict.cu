@@ -59,16 +59,6 @@ namespace alac {
 
 constexpr int MAX_PREDICT_ORDERS = 2;
 
-// sext at a per-lane width, the shift sh = 32 - chanbits given: the C
-// idiom with PTX's shifts, which clamp an amount past 31 (a width of 33
-// gives 0, as alacjax's XLA shifts do).
-__device__ __forceinline__ int sext_sh(int x, unsigned sh) {
-    int r;
-    asm("{\n\t.reg .b32 t;\n\tshl.b32 t, %1, %2;\n\tshr.s32 %0, t, %2;\n\t}"
-        : "=r"(r) : "r"(x), "r"(sh));
-    return r;
-}
-
 struct PredictArgs {
     const int* x;          // (L, S)
     const int* coefs0;     // (L, 16), or (n_orders, L, 16): c0_stride

@@ -187,3 +187,46 @@ def bytes_to_words(packets: list[bytes], num_words: int) -> np.ndarray:
         mv[i * W4: i * W4 + len(p)] = p
     return np.frombuffer(buf, dtype=">u4").reshape(B, num_words).astype(
         np.uint32)
+
+
+def combine_chunks(words, keys, num_words: int, max_dups: int = 8):
+    """The sort-based assembler (alacjax.ops.bitpack.combine_chunks):
+    sparse (absolute word index, word value) chunk streams (B, T) ->
+    dense (B, num_words) word image, int32 bit patterns.  Keys sort per
+    lane; runs of a duplicated key (boundary words shared by neighbouring
+    segments, their bits disjoint) add into the run's first entry; the
+    entry for word j then sits at sorted position j + (duplicates before
+    j) <= j + max_dups, so max_dups + 1 shifted compares place it.  A
+    lane whose duplicates exceed max_dups has its whole image inverted
+    (poisoned) rather than silently lose a word.  No codec path calls it
+    (the codec merges through merge_sorted_chunks)."""
+    B, T = words.shape
+    dev = words.device
+    keys_s, order = torch.sort(u32(keys), dim=1, stable=True)
+    words_s = torch.gather(u32(words), 1, order)
+    no = torch.zeros((B, max_dups + 1), dtype=torch.bool, device=dev)
+    same_prev = torch.cat([no[:, :1], keys_s[:, 1:] == keys_s[:, :-1]], 1)
+    combined = words_s
+    run = torch.ones((B, T), dtype=torch.bool, device=dev)
+    for r in range(1, max_dups + 1):
+        run = run & torch.cat([same_prev[:, r:], no[:, :r]], 1)[:, :T]
+        shifted = torch.nn.functional.pad(words_s[:, r:], (0, r))[:, :T]
+        combined = combined + torch.where(run, shifted, 0)
+    combined = combined & MASK32
+    first = ~same_prev
+    if T < num_words:
+        raise ValueError("chunk slot count smaller than output width")
+    pad = max_dups + 1
+    keys_p = torch.nn.functional.pad(keys_s, (0, pad), value=MASK32)
+    comb_p = torch.nn.functional.pad(combined, (0, pad))
+    first_p = torch.cat([first, no], 1)
+    jq = iota1(num_words, device=dev)[None, :]
+    out = torch.zeros((B, num_words), dtype=I64, device=dev)
+    for r in range(max_dups + 1):
+        hit = (keys_p[:, r:r + num_words] == jq) & first_p[:, r:r + num_words]
+        out = out + torch.where(hit, comb_p[:, r:r + num_words], 0)
+    out = out & MASK32
+    pos = iota1(T, device=dev)[None, :]
+    real = keys_s != MASK32
+    over = (first & real & (((pos - keys_s) & MASK32) > max_dups)).any(1)
+    return as_i32_bits(torch.where(over[:, None], out ^ MASK32, out))

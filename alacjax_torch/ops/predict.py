@@ -168,3 +168,82 @@ def wrap_diff(res, chanbits):
     res = wrap_i32(res)
     diffs = sign_extend(res[:, 1:] - res[:, :-1], chanbits)
     return torch.cat([res[:, :1], diffs], dim=1).to(I32)
+
+
+def unpc_block(res, coefs0, numactive, chanbits, denshift=9):
+    """Batched inverse prediction (alacjax.ops.predict.unpc_block,
+    dp_dec.c :: unpc_block): (B, S) residuals -> (samples (B, S), adapted
+    coefs (B, n)), int32.  ``numactive`` is a static order (0: the
+    residuals themselves; 31: their running sum; 1..16: the adaptive
+    FIR) or a per-lane (B,) tensor of 0, 1..16 and 31, walked at 16 taps
+    (alacjax's per-lane branch: orders clamped into 1..16 for the walk,
+    then the 0 and 31 lanes overlaid).  ``denshift`` is an int or
+    per-lane; ``coefs0`` None starts from zeros.  XLA glue in alacjax
+    with no kernel; no codec path calls it (the decode runs the fused
+    kernel, decode_channel)."""
+    B, S = res.shape
+    dev = res.device
+    x = wrap_i32(res)
+    if coefs0 is None:
+        coefs0 = torch.zeros((B, kALACMaxCoefs), dtype=I32, device=dev)
+    coefs0 = coefs0.to(I64)
+    if isinstance(numactive, int):
+        if numactive == 0:
+            return x.to(I32), coefs0.to(I32)
+        if numactive == 31:
+            return _running_sum(x, chanbits).to(I32), coefs0.to(I32)
+        nk, na = numactive, torch.full((B,), numactive, dtype=I64,
+                                       device=dev)
+    else:
+        nk, na = kALACMaxCoefs, torch.clamp(numactive.to(I64), 1,
+                                            kALACMaxCoefs)
+    den = torch.clamp(torch.as_tensor(denshift, dtype=I64, device=dev),
+                      min=1).expand(B)
+    zero = torch.zeros((B,), dtype=I64, device=dev)
+    lags = [zero] * (nk + 1)
+    coefs = [coefs0[:, k] for k in range(nk)]
+    outs = []
+    for t in range(S):
+        x_t = x[:, t]
+        top = zero
+        for i in range(nk + 1):
+            top = torch.where(na == i, lags[i], top)
+        in_warm = t <= na
+        sum1 = (1 << (den - 1)) + sum(
+            torch.where(k < na, coefs[k] * (lags[k] - top), 0)
+            for k in range(nk))
+        pred_adj = wrap_i32(sum1) >> den
+        out = torch.where(
+            in_warm, sign_extend(x_t + lags[0], chanbits),
+            sign_extend(x_t + top + pred_adj, chanbits))
+        out = x_t if t == 0 else out
+        # sign-sign adaptation, from the last tap down, acting while the
+        # error keeps its side (dp_dec.c early exit)
+        sg = torch.sign(x_t)
+        del0 = x_t
+        for k in range(nk - 1, -1, -1):
+            going = torch.where(sg > 0, del0 > 0, del0 < 0)
+            act = ~in_warm & (sg != 0) & going & (k < na)
+            dd = wrap_i32(top - lags[k])
+            sgn = torch.sign(dd)
+            upd = torch.where(sg > 0, -sgn, sgn)
+            coefs[k] = sign_extend(coefs[k] + torch.where(act, upd, 0), 16)
+            mag = wrap_i32(sgn * dd)
+            term = torch.where(sg > 0, mag >> den, wrap_i32(-mag) >> den)
+            del0 = wrap_i32(del0 - torch.where(act, (na - k) * term, 0))
+        lags = [out] + lags[:-1]
+        outs.append(out)
+    samples = torch.stack(outs, dim=1)
+    coefs_out = torch.stack(coefs + [coefs0[:, k] for k in
+                                     range(nk, coefs0.shape[1])], dim=1)
+    if not isinstance(numactive, int):
+        na_raw = numactive.to(I64)[:, None]
+        samples = torch.where(na_raw == 0, x, torch.where(
+            na_raw == 31, _running_sum(x, chanbits), samples))
+    return samples.to(I32), coefs_out.to(I32)
+
+
+def _running_sum(x, chanbits):
+    """The decode side of mode 31: the int32 running sum, at chanbits
+    (an int or per-lane (B,))."""
+    return sign_extend(wrap_i32(torch.cumsum(x, dim=1)), chanbits)

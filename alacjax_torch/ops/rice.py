@@ -226,3 +226,52 @@ def rice_encode_words(res, bit_size, mb0: int, pb: int, kb: int, wb: int,
     tail_key = base_word + wcount
     return (as_i32_bits(words.reshape(B, -1)), as_i32_bits(keys.reshape(B, -1)),
             end_bits.to(I32), as_i32_bits(tail_val), as_i32_bits(tail_key))
+
+
+def rice_encode_tokens(res, bit_size: int, mb0: int, pb: int, kb: int,
+                       wb: int):
+    """Residuals (B, S) -> the token stream in bitstream order
+    (alacjax.ops.rice.rice_encode_tokens): (vals (B, 3*(S+1)) int32 bit
+    patterns, lens (B, 3*(S+1)) int32), per step the slots [zero-run
+    codeword, residual codeword, escape payload], step S the virtual end
+    step that flushes a pending run.  XLA glue in alacjax with no kernel;
+    no codec path calls it (the codec emits words through
+    rice_encode_words)."""
+    B, S = res.shape
+    dev = res.device
+    kw = dict(S=S, bit_size=lane_arg(bit_size), pb=pb, kb=kb, wb=wb)
+    state = init_state(B, mb0, dev)
+    ones = torch.ones((B,), dtype=I64, device=dev)
+    vals, lens = [], []
+    for t in range(S + 1):
+        x = res[:, t].to(I64) if t < S else ones
+        state, v, ln = encode_step_tokens(x, t, state, **kw)
+        vals.append(torch.stack([torch.as_tensor(a, device=dev).to(I64)
+                                 .expand(B) for a in v], dim=1))
+        lens.append(torch.stack([torch.as_tensor(a, device=dev).to(I64)
+                                 .expand(B) for a in ln], dim=1))
+    return (as_i32_bits(torch.stack(vals, dim=1).reshape(B, -1)),
+            torch.stack(lens, dim=1).reshape(B, -1).to(I32))
+
+
+def rice_decode(words, start_bits, num_samples: int, bit_size, mb0: int,
+                pb, kb: int, wb: int, max_bit_size: int = 32):
+    """Decode ``num_samples`` residuals per lane from packed words
+    (alacjax.ops.rice.rice_decode): words (B, W) int32 bit patterns of
+    each frame's big-endian bit image, start_bits (B,) int32, bit_size
+    the escape payload width (an int or per-lane (B,) int32, at most
+    ``max_bit_size``), pb an int or per-lane.  Returns (residuals (B, S)
+    int32, end_bits (B,) int32, err (B,) bool).  One Rice cursor serves
+    this and the decode: it is the decode kernel wrapper's raw mode, so
+    on the card it launches csrc/decode.cu's raw instance; no codec path
+    calls it."""
+    from ..kernels import decode as k_decode
+    B = start_bits.shape[0]
+    dev = start_bits.device
+    if isinstance(pb, int):
+        pb = torch.full((B,), pb, dtype=I32, device=dev)
+    return k_decode.decode_channel(
+        words, start_bits, num_samples, bit_size, mb0, pb, kb, wb, None,
+        None, None, None,
+        chanbits_max=None if isinstance(bit_size, int) else max_bit_size,
+        raw=True)

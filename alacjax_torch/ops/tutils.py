@@ -86,14 +86,11 @@ def sign_of_int(x):
 
 
 def clz32(x):
-    """Count leading zeros of the unsigned 32-bit value (clz(0) == 32)."""
-    x = u32(x)
-    n = torch.full_like(x, 32)
-    for sh in (16, 8, 4, 2, 1):
-        big = x >= (1 << sh)
-        n = torch.where(big, n - sh, n)
-        x = torch.where(big, x >> sh, x)
-    return n - x
+    """Count leading zeros of the unsigned 32-bit value (clz(0) == 32):
+    32 less the value's bit length, the exponent frexp gives (float64
+    holds every 32-bit value exactly; frexp(0) gives 0)."""
+    _, e = torch.frexp(u32(x).to(torch.float64))
+    return 32 - e.to(I64)
 
 
 def lg3a(x):

@@ -16,10 +16,12 @@ Phases, each of which exits nonzero on failure:
      the phase-4 corpus, one call per distinct (taps, chanbits) of the
      phase-5 and phase-6 decodes, and one call per distinct signature of
      the phase-7 5.1 encode, of the standalone-predictor encodes
-     (phase 8's stereo corpus and the 5.1 corpus) and of one stream
+     (phase 8's stereo corpus and the 5.1 corpus), of one stream
      step with persistent banks (packet 2 of phase 10's streams, the
      banks carried from packet 1: the cost kernel with one block of
-     starting coefficients per order) — a new signature's
+     starting coefficients per order), of phase 12's stacked decodes
+     (the cursor launches and the stacked decode launch, stereo and
+     5.1) and of its rice_decode (the raw instance) — a new signature's
      call at S = 4096 is compared on its first PREFIX samples (with num
      clamped there), a causal prefix being a whole input of its own, and
      on the whole input, whose time and bound are printed beside — and
@@ -29,7 +31,11 @@ Phases, each of which exits nonzero on failure:
      launch pricing every order's residuals and, stage 2, their first
      difference (``dual``); then tests/torch_predict_cases.py's
      tile-edge inputs through both of those kernels (every order, per-
-     lane chanbits 16..33 and num, L 33 and 67, S 1..100); the results
+     lane chanbits 16..33 and num, L 33 and 67, S 1..100); the cost
+     kernel and every decode instance at per-lane chanbits 16..33 on
+     synthetic inputs (tests/torch_decode_cases.py); and per merge
+     signature torch's scatter_ (merge's compaction half) beside the
+     merge kernel's scatter alone and the whole merge; the results
      must be exactly equal; each call's bound is printed beside (see
      ``work``: bytes at 3.35 TB/s or the operations the function needs
      at the SMs' issue rate, whichever is longer), and each predictor
@@ -93,15 +99,25 @@ Phases, each of which exits nonzero on failure:
      listed twice) on phase 4's batch: the split encode's words and
      bits, and its decode, equal the unsplit codec's; the host API's
      packets equal phase 4's and decode losslessly; roundtrip_step is
-     lossless and its total_bytes is the sum of the packets' lengths.
-Each path (phases 4-11) runs with the launch counts set to 0 just before
+     lossless and its total_bytes is the sum of the packets' lengths;
+ 12. the stacked decode: phase 4's stereo-16 words and phase 5's 24-bit
+     5.1 words through TorchCodec(..., decode_stacked=True): PCM, err
+     and num equal to the chained decode's, lossless, exactly one
+     cursor launch per channel but the last and one stacked decode
+     launch; the cursor's ms per channel beside the chained decode's
+     8-tap launch per channel, the stacked launch's ms and the whole
+     stacked and chained decodes in turns; rice_decode of the stereo
+     frames' first channel (the raw instance), ending where the cursor
+     ends; then the encode of phase 4's batch and the decodes of phases
+     4 and 5 up to each profiling cut (``stop_at``), ms per batch.
+Each path (phases 4-12) runs with the launch counts set to 0 just before
 it and read just after; a kernel of the path that was not launched
 fails the run.  The line before the last is a JSON object of per-kernel
 results ("launches" sums the paths' counts; "ms", "plain_ms" and
 "bound_ms" sum a kernel's compared calls, on the inputs compared;
 "library_ms" is null, no single PyTorch call computing any of these
-scans); the last line is the JSON result line.  ``--profile DIR`` also
-writes torch.profiler tables
+scans, nor merge's scatter plus tail OR); the last line is the JSON
+result line.  ``--profile DIR`` also writes torch.profiler tables
 of one device-resident encode + decode of phase 4 (DIR/profile.txt), one
 phase-5 decode (DIR/profile_51.txt), the three phase-6 rungs
 (DIR/profile_ladder.txt), one phase-7 5.1 encode (DIR/profile_enc51.txt),
@@ -144,17 +160,25 @@ REPLACES = {
     "predict": "alacjax/ops/pallas/predict_pallas.py:128",
     # a glue kernel: the XLA scan the predict_legacy route prices with
     "rice_cost": "alacjax/ops/rice.py:195",
+    # glue kernels: the XLA cursor scan of the stacked decode, and the
+    # raw mode of alacjax's decode_channel behind rice_decode
+    "decode_cursor": "alacjax/ops/fused_decode.py:337",
+    "decode_raw": "alacjax/ops/rice.py:427",
 }
 SOURCES = {name: f"alacjax_torch/csrc/{name}.cu" for name in REPLACES}
-SOURCES["decode_hi"] = SOURCES["decode"]       # the 16/30-tap instances
+for _name in ("decode_hi", "decode_cursor", "decode_raw"):
+    SOURCES[_name] = SOURCES["decode"]         # instances of csrc/decode.cu
 SOURCES["rice_cost"] = SOURCES["predict"]      # its cost-only pass
+DECODES = ("decode", "decode_hi", "decode_cursor", "decode_raw")
 # (wrapper module, wrapper, its plain version, LAUNCHES key); the decode
-# wrapper's key follows its tap count
+# wrapper's key follows its tap count and raw mode
 WRAPPERS = (
     ("alacjax_torch.kernels.cost", "pc_block_cost2", "plain", "cost"),
     ("alacjax_torch.kernels.emit", "rice_encode_words", "plain", "emit"),
     ("alacjax_torch.kernels.merge", "merge_sorted_chunks", "plain", "merge"),
     ("alacjax_torch.kernels.decode", "decode_channel", "plain", None),
+    ("alacjax_torch.kernels.decode", "cursor_scan", "plain_cursor",
+     "decode_cursor"),
     ("alacjax_torch.kernels.predict", "pc_block", "plain_pc_block",
      "predict"),
     ("alacjax_torch.kernels.predict", "rice_cost", "plain_rice_cost",
@@ -169,6 +193,8 @@ PATH_KERNELS = {         # the kernels each path must launch
     "phase 9": ("cost", "emit", "merge", "decode"),
     "phase 10": ("cost", "emit", "merge", "decode"),
     "phase 11": ("cost", "emit", "merge", "decode"),
+    "phase 12": ("decode", "decode_cursor"),
+    "phase 12 raw": ("decode_raw",),
 }
 HBM_BYTES_PER_S = 3.35e12    # one H100 SXM's device memory rate
 # Lane operations one Hopper SM issues per clock: four schedulers, each
@@ -202,6 +228,7 @@ RICE_DECODE = 36     # per decoded sample: k (4), m (2), 32 bits cut at the
                      # escape test (1), n (3), the cursor's advance (4),
                      # the unfolded residual (4), the mean (6), the
                      # zero-run test (4)
+UNFOLD = 4           # the unfolded residual's share of RICE_DECODE
 RICE_IDLE = 3        # per sample inside a zero run
 DIFF_STAGE = 2       # per sample of a first difference or running sum
 SMALL_ENCODES = (        # phase 7's B=512 stereo encodes
@@ -348,12 +375,23 @@ def work(call, got, counts):
     from alacjax_torch.ops.tutils import work_total
     coded = work_total(counts, "coded")
     ops = WALK_STEP * work_total(counts, "taps")
-    if name in ("decode", "decode_hi"):
+    if name in DECODES:
+        # lanes may stack on fewer word rows; the cursor's and the raw
+        # decode's work is the Rice decode alone
         S = a["num_samples"]
-        used = (outs[1].to(i64) - a["start_bits"].to(i64)).clamp(min=0)
+        L = a["start_bits"].shape[0]
+        used = (outs[-2].to(i64) - a["start_bits"].to(i64)).clamp(min=0)
         moved += int(used.sum().item()) // 8 - nbytes([x])
         n = (torch.full((L,), S, dtype=i64, device=x.device)
-             if a["num"] is None else a["num"].to(i64))
+             if a["num"] is None else a["num"].to(i64).clamp(0, S))
+        if a.get("skip") is not None:
+            n = torch.where(a["skip"], 0, n)
+        # the cursor emits only end bits and err: it never unfolds the
+        # residual, so its coded samples cost RICE_DECODE less that term
+        per = RICE_DECODE - UNFOLD if name == "decode_cursor" else RICE_DECODE
+        ops += per * coded + RICE_IDLE * (int(n.sum().item()) - coded)
+        if name in ("decode_cursor", "decode_raw"):
+            return moved, ops, L * S
         na = a["numactive"].to(i64)
         order = na.clamp(max=a["taps"])
         past = (n - order - 1).clamp(min=0)     # samples past the warm-up
@@ -361,8 +399,7 @@ def work(call, got, counts):
                           past * (FIR_PER_TAP * order + FIR_FIXED),
                           torch.where(na == 31, DIFF_STAGE * n, 0))
         diff = DIFF_STAGE * n[a["mode"] != 0].sum()
-        ops += (int((fir.sum() + diff).item()) + RICE_DECODE * coded
-                + RICE_IDLE * (int(n.sum().item()) - coded))
+        ops += int((fir.sum() + diff).item())
         return moved, ops, L * S
     S = x.shape[1]
     n = S * L if a.get("num") is None else int(a["num"].sum().item())
@@ -500,8 +537,9 @@ def recording(calls):
 
         def recorder(*args, _mod=mod, _fn=wrapper, _plain=plain_name,
                      _key=key, **kwargs):
-            name = _key or _mod.counter(kwargs.get("taps",
-                                                   _mod.fused_decode.TAPS))
+            name = _key or _mod.counter(
+                kwargs.get("taps", _mod.fused_decode.TAPS),
+                kwargs.get("raw", False))
             calls.append((name, _fn, getattr(_mod, _plain), args, kwargs))
             return _fn(*args, **kwargs)
 
@@ -523,7 +561,10 @@ def signature(call):
 
     def part(v):
         return ("lane", v.dim()) if isinstance(v, torch.Tensor) else v
-    return ((name, tuple(args[0].shape[1:])) + tuple(map(part, args[1:]))
+    stacked = ((("lanes per row", args[1].shape[0] // args[0].shape[0]),)
+               if name in DECODES else ())
+    return ((name, tuple(args[0].shape[1:])) + stacked
+            + tuple(map(part, args[1:]))
             + tuple((k, part(v)) for k, v in sorted(kwargs.items())))
 
 
@@ -541,14 +582,20 @@ def one_per_signature(calls, seen=None):
 
 def prefix(call, n: int):
     """A scan kernel's call cut to its first n samples: the input's
-    leading columns, per-lane sample counts clamped to n.  Merge and
-    decode calls, and calls already at most n long, stay whole."""
+    leading columns (a decode: its sample count; each lane's first n
+    samples read the same bits), per-lane sample counts clamped to n.
+    Merge calls, and calls already at most n long, stay whole."""
     import torch
     name, wrapper, plain, args, kwargs = call
-    if name not in ("cost", "emit", "predict", "rice_cost") or \
+    if name in DECODES:
+        if args[2] <= n:
+            return call, False
+        args = tuple(args[:2]) + (n,) + tuple(args[3:])
+    elif name not in ("cost", "emit", "predict", "rice_cost") or \
             args[0].shape[1] <= n:
         return call, False
-    args = (args[0][:, :n].contiguous(),) + tuple(args[1:])
+    else:
+        args = (args[0][:, :n].contiguous(),) + tuple(args[1:])
     if kwargs.get("num") is not None:
         kwargs = dict(kwargs, num=torch.clamp(kwargs["num"], max=n))
     return (name, wrapper, plain, args, kwargs), True
@@ -570,13 +617,20 @@ def describe(name: str, args, kwargs) -> str:
             parts.append("coefs0 per order")
     elif name in ("emit", "rice_cost"):
         parts = [f"bit_size {v(args[1])}"]
-    elif name in ("decode", "decode_hi"):
-        parts = [f"taps {kwargs['taps']}", f"chanbits {v(args[3])}"]
+    elif name in DECODES:
+        parts = ([f"taps {kwargs['taps']}"] if name in ("decode", "decode_hi")
+                 else [])
+        parts.append(f"{'bit_size' if name == 'decode_raw' else 'chanbits'} "
+                     f"{v(args[3])}")
+        if args[1].shape[0] != args[0].shape[0]:
+            parts.append(f"stacked x{args[1].shape[0] // args[0].shape[0]}")
+        if kwargs.get("skip") is not None:
+            parts.append("skip lane")
     if name == "cost":
         parts.append(f"dual {kwargs.get('dual', True)}")
     if name == "rice_cost" and kwargs.get("dual"):
         parts.append("dual")
-    if name in ("cost", "emit", "rice_cost") and \
+    if name in ("cost", "emit", "rice_cost", "decode_cursor") and \
             kwargs.get("num") is not None:
         parts.append("num lane")
     return " ".join(parts)
@@ -1649,6 +1703,232 @@ def sharded(cfg, pcm, codec, counts, main4, device: str = "cuda"):
           f"{times['split'][1]}, {times['unsplit'][1]}")
 
 
+def merge_library(calls):
+    """Phase 3: per merge signature, torch.Tensor.scatter_ (one PyTorch
+    call computing merge's compaction half: the (B, T) words into a
+    (B, W + 1) image, empty keys sent to the spare last column) beside
+    the merge kernel's scatter alone (csrc/merge.cu's merge_scatter: the
+    kernel entry with no tails) and the whole merge, on the same inputs.
+    Returns {B x T: (scatter_ ms, merge_scatter ms, merge ms)}."""
+    import torch
+    from alacjax_torch.kernels import launch
+    out = {}
+    for name, wrapper, _, args, kwargs in one_per_signature(calls):
+        if name != "merge":
+            continue
+        vals, keys, tv, tk, W = args
+        Bm, T = vals.shape
+        idx = torch.where((keys >= 0) & (keys < W), keys, W).to(torch.int64)
+        image = torch.zeros((Bm, W + 1), dtype=torch.int32, device="cuda")
+        _, lib_ms = timed(lambda: image.scatter_(1, idx, vals), reps=5)
+        if not torch.equal(image[:, :W], wrapper(vals, keys, tv[:, :0],
+                                                 tk[:, :0], W)):
+            fail("scatter_ disagrees with the merge kernel's compaction")
+        dense = torch.zeros((Bm, W), dtype=torch.int32, device="cuda")
+        _, scatter_ms = timed(lambda: launch(
+            "alac_merge", vals, vals.data_ptr(), keys.data_ptr(),
+            tv.data_ptr(), tk.data_ptr(), dense.data_ptr(), Bm, T, 0, W),
+            reps=5)
+        _, merge_ms = timed(lambda: wrapper(*args, **kwargs), reps=5)
+        key = f"{Bm}x{T}"
+        out[key] = (lib_ms, scatter_ms, merge_ms)
+        print(f"  merge on {key} -> {Bm}x{W}: torch scatter_ {lib_ms:.4f} ms "
+              f"(compaction only), merge_scatter alone {scatter_ms:.4f} ms, "
+              f"whole merge kernel {merge_ms:.4f} ms (zeroed image and "
+              "tails included)", flush=True)
+    return out
+
+
+def chanbits33_cases(rows, repo: str):
+    """Phase 3: the cost kernel (search and trial) and every decode
+    instance (8, 16 and 30 taps, the cursor, the raw decode; lanes one
+    to a row and two to a row) at per-lane chanbits 16..33 on the
+    synthetic inputs of tests/torch_predict_cases.py and
+    tests/torch_decode_cases.py, each exactly equal to its plain
+    version.  33 is one past a 32-bit channel: every sign extension at
+    that width gives 0 (csrc/common.cuh :: sext_sh)."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.join(repo, "tests"))
+    from torch_decode_cases import RICE, decode_lanes
+    from torch_predict_cases import predict_lanes
+    from alacjax_torch.kernels import cost as kc
+    from alacjax_torch.kernels import decode as kd
+    from alacjax_torch.types import DENSHIFT_DEFAULT, KB0, MB0, PB0
+
+    def hold(name, got, want, what):
+        err = max_abs_err(got, want)
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+        if err:
+            fail(f"{name} kernel disagrees with its plain version at "
+                 f"chanbits 16..33: {what}")
+
+    n = 0
+    mb0, kb, wb = RICE
+    for L, Sc in ((66, 100), (4096, 256)):
+        x, cb, c0 = (torch.from_numpy(v).to("cuda") for v in predict_lanes(
+            np.random.default_rng(L + 33), L, Sc, n_orders=1))
+        for orders, dual in (((4, 8), True), ((8,), False)):
+            args = (x, c0[0], orders, cb, DENSHIFT_DEFAULT, MB0, PB0, KB0,
+                    (1 << KB0) - 1)
+            hold("cost", kc.pc_block_cost2(*args, dual=dual),
+                 kc.plain(*args, dual=dual), f"L={L} S={Sc} orders {orders}")
+            n += 1
+        for rows_n in (L, L // 2):
+            words, lane = decode_lanes(np.random.default_rng(L + rows_n), L,
+                                       Sc, rows_n)
+            w = torch.from_numpy(words.view(np.int32)).to("cuda")
+            t = {k: torch.from_numpy(v).to("cuda") for k, v in lane.items()}
+            head = (w, t["start"], Sc, t["cb"], mb0, t["pb"], kb, wb)
+            what = f"L={L} on {rows_n} rows S={Sc}"
+            for taps in (8, 16, 30):
+                args = head + (t["coefs"][:, :taps].contiguous(), t["mode"],
+                               t["order"], t["den"])
+                kw = dict(num=t["num"], taps=taps, chanbits_max=33)
+                hold(kd.counter(taps), kd.decode_channel(*args, **kw),
+                     kd.plain(*args, **kw), f"{what} taps {taps}")
+            kw = dict(chanbits_max=33, skip=t["skip"], num=t["num"])
+            hold("decode_cursor", kd.cursor_scan(*head, **kw),
+                 kd.plain_cursor(*head, **kw), what)
+            args = head + (None,) * 4
+            kw = dict(num=t["num"], chanbits_max=33, raw=True)
+            hold("decode_raw", kd.decode_channel(*args, **kw),
+                 kd.plain(*args, **kw), what)
+            n += 5
+    print(f"  chanbits 16..33 (33 included): {n} calls of the cost kernel "
+          "(search and trial) and of the decode, cursor and raw instances "
+          "(lanes one and two to a word row), L 66 and 4096: max_abs_err 0",
+          flush=True)
+
+
+def raw_drive(codec, words):
+    """alacjax_torch.ops.rice.rice_decode of every frame's first channel:
+    its Rice start and parameter from decode_frames_device's "params"
+    cut.  Returns (the rice_decode result, the start bits, pb,
+    chanbits)."""
+    import torch
+    from alacjax_torch.codec import decode_frames_device
+    from alacjax_torch.oracle.encoder import bytes_shifted_for_depth
+    from alacjax_torch.ops import rice
+    cfg = codec.config
+    params, (start, _) = decode_frames_device(words, cfg, cfg.frame_length,
+                                              stop_at="params")
+    pb = ((cfg.pb * params[0][2]) // 4).to(torch.int32)
+    chanbits = (cfg.bit_depth - 8 * bytes_shifted_for_depth(cfg.bit_depth)
+                + (1 if cfg.elements[0][1] == 2 else 0))
+    start = start.to(torch.int32)
+    return (rice.rice_decode(words, start, cfg.frame_length, chanbits,
+                             cfg.mb, pb, cfg.kb, (1 << cfg.kb) - 1),
+            start, pb, chanbits)
+
+
+def stacked_decode(codec, codec51, w4, w51, pcm4, pcm51, nums51, counts):
+    """Phase 12: phase 4's stereo-16 words and phase 5's 24-bit 5.1 words
+    through decode_frames_device(stacked=True) (TorchCodec(...,
+    decode_stacked=True)): PCM, err and num equal to the chained decode,
+    lossless, one cursor launch per channel but the last and one stacked
+    decode launch; the cursor's ms per channel beside the chained
+    decode's 8-tap launch per channel, the stacked launch, and the whole
+    stacked decode beside the chained one, in turns; then rice_decode
+    (the raw instance) of the stereo frames' first channel."""
+    import numpy as np
+    import torch
+    from alacjax_torch import TorchCodec, kernels
+    from alacjax_torch.kernels import decode as kd
+    out = {}
+    cases = [(label, c, w, ref, nums, n_ch, c._decode(w))
+             for label, c, w, ref, nums, n_ch in (
+                 ("stereo-16", codec, w4, pcm4, None, 2),
+                 ("24-bit 5.1", codec51, w51, pcm51, nums51, 6))]
+    with path_run("phase 12", counts):
+        for label, c, w, ref, nums, n_ch, want in cases:
+            st = TorchCodec(c.config, chunk=B, device="cuda",
+                            decode_stacked=True)
+            before = dict(kernels.LAUNCHES)
+            got = st._decode(w)
+            torch.cuda.synchronize()
+            cur = kernels.LAUNCHES["decode_cursor"] - before["decode_cursor"]
+            dec = kernels.LAUNCHES["decode"] - before["decode"]
+            if (cur, dec) != (n_ch - 1, 1):
+                fail(f"phase 12: {label} ran {cur} cursor and {dec} decode "
+                     f"launches, not {n_ch - 1} and 1")
+            for name, g, r in zip(("pcm", "err", "num"), got, want):
+                if not torch.equal(g, r):
+                    fail(f"phase 12: {label} stacked {name} differs from "
+                         "the chained decode")
+            if bool(got[1].any().item()) or not torch.equal(
+                    got[0], torch.from_numpy(ref).to("cuda")):
+                fail(f"phase 12: the {label} stacked decode is not lossless")
+            if nums is not None and not np.array_equal(
+                    got[2].cpu().numpy(), nums):
+                fail(f"phase 12: the {label} stacked decode's num differs")
+            out[label] = (st, c, w, n_ch)
+    del cases
+    print("  stacked == chained (pcm, err, num) and lossless on stereo-16 "
+          "and 24-bit 5.1; launches 1 cursor + 1 decode and 5 cursor + 1 "
+          "decode", flush=True)
+    for label, (st, c, w, n_ch) in out.items():
+        with recording([]) as rec_st:
+            st._decode(w)
+        with recording([]) as rec_ch:
+            c._decode(w)
+        cur_ms = [timed(lambda: f(*a, **k), reps=3)[1]
+                  for n, f, _, a, k in rec_st if n == "decode_cursor"]
+        stk_ms = [timed(lambda: f(*a, **k), reps=3)[1]
+                  for n, f, _, a, k in rec_st if n == "decode"]
+        ch_ms = [timed(lambda: f(*a, **k), reps=3)[1]
+                 for n, f, _, a, k in rec_ch if n == "decode"]
+        del rec_st, rec_ch
+        turns = {"chained": [], "stacked": []}
+        for which in ("chained", "stacked", "stacked", "chained"):
+            fn = c._decode if which == "chained" else st._decode
+            turns[which].append(timed(lambda: fn(w), reps=3)[1] / 1e3)
+        print(f"  {label}: cursor ms per channel {cur_ms} (mean "
+              f"{sum(cur_ms) / len(cur_ms):.4f}); chained 8-tap decode "
+              f"launch ms per channel {ch_ms} (mean "
+              f"{sum(ch_ms) / len(ch_ms):.4f}; cursor / full "
+              f"{sum(cur_ms) / sum(ch_ms) * len(ch_ms) / len(cur_ms):.3f}); "
+              f"stacked decode launch over {n_ch} x {B} lanes {stk_ms[0]:.4f}"
+              f" ms; whole decode s per batch, in turns: chained "
+              f"{turns['chained']}, stacked {turns['stacked']}", flush=True)
+    with path_run("phase 12 raw", counts):
+        (res, end, err), start, pb, cb = raw_drive(codec, w4)
+        c_end, c_err = kd.cursor_scan(w4, start, S, cb, codec.config.mb, pb,
+                                      codec.config.kb,
+                                      (1 << codec.config.kb) - 1)
+    if bool(err.any().item()) or not torch.equal(end, c_end) \
+            or bool(c_err.any().item()):
+        fail("phase 12: rice_decode's end bits differ from the cursor's")
+    print(f"  rice_decode of the {B} stereo frames' first channel ({B}x{S} "
+          "residuals, raw instance): ends where the cursor ends, no frame "
+          "flagged", flush=True)
+
+
+def cut_times(codec, codec51, x, w4, w51):
+    """Phase 12: the device-resident encode of phase 4's batch up to each
+    of _encode_packet_chunks's cuts, and the decode of phase 4's and
+    phase 5's words up to each of decode_frames_device's cuts, ms per
+    batch (card clock, 3 calls after a warm-up)."""
+    from alacjax_torch.codec import (
+        DECODE_CUTS, ENCODE_CUTS, _encode_packet_chunks, decode_frames_device,
+    )
+    cfg = codec.config
+    enc = [(stop, timed(lambda: _encode_packet_chunks(
+        x, cfg, codec.num_words, stop_at=stop), reps=3)[1])
+        for stop in ENCODE_CUTS + (None,)]
+    print("  encode of phase 4's batch up to each cut, ms: "
+          + ", ".join(f"{stop or 'whole'} {ms:.3f}" for stop, ms in enc),
+          flush=True)
+    for label, c, w in (("phase 4 stereo-16", codec, w4),
+                        ("phase 5 24-bit 5.1", codec51, w51)):
+        dec = [(stop, timed(lambda: decode_frames_device(
+            w, c.config, c.config.frame_length, stop_at=stop), reps=3)[1])
+            for stop in DECODE_CUTS + (None,)]
+        print(f"  decode of the {label} words up to each cut, ms: "
+              + ", ".join(f"{stop or 'whole'} {ms:.3f}" for stop, ms in dec),
+              flush=True)
+
+
 def profile(fn, name: str):
     """With --profile DIR: a torch.profiler table of one call of fn,
     written to DIR/name."""
@@ -1748,27 +2028,39 @@ def main() -> int:
                     bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
             for k in REPLACES}
     compare_kernels(calls, rows, int_ops)
+    merges = merge_library(calls)
     # the new signatures: per-lane chanbits and num (the 5.1 encode), the
-    # standalone-predictor route (stereo and 5.1) and a stream step with
-    # persistent banks (one block of starting coefficients per order)
+    # standalone-predictor route (stereo and 5.1), a stream step with
+    # persistent banks (one block of starting coefficients per order),
+    # the stacked decode (its cursors and its stacked launch, stereo and
+    # 5.1) and rice_decode's raw decode
     seen = {signature(c) for c in calls}
     del calls
     legacy = TorchCodec(cfg, chunk=B, device="cuda", predict_legacy=True)
     legacy51 = TorchCodec(cfg51, chunk=B, device="cuda", predict_legacy=True)
+    stacked = TorchCodec(cfg, chunk=B, device="cuda", decode_stacked=True)
+    stacked51 = TorchCodec(cfg51, chunk=B, device="cuda",
+                           decode_stacked=True)
+    w4 = codec._encode(x)[0]
+    w51 = device_words(codec51, packets51)
     new_calls = []
     for run in (lambda: codec51._encode(x51, n51), lambda: legacy._encode(x),
                 lambda: legacy51._encode(x51, n51),
-                bank_step(cfg, torch.from_numpy(pcm10[:, :2]).to("cuda"))):
+                bank_step(cfg, torch.from_numpy(pcm10[:, :2]).to("cuda")),
+                lambda: stacked._decode(w4), lambda: stacked51._decode(w51),
+                lambda: raw_drive(codec, w4)):
         with recording([]) as rec:
             run()
         new_calls += one_per_signature(rec, seen)
         del rec
     compare_kernels(new_calls, rows, int_ops, cut=True)
+    merges.update(merge_library(new_calls))
     walker_cycles(new_calls, clock)
     # one emit call that ends mid-tile in lanes and in steps
     compare_kernels([ragged_emit_call()], rows, int_ops)
     predict_tile_edges(rows, repo)
-    del new_calls, legacy, legacy51, run
+    chanbits33_cases(rows, repo)
+    del new_calls, legacy, legacy51, stacked, stacked51, run
     missing = [k for k, r in rows.items() if r["calls"] == 0]
     if missing:
         fail(f"kernels never compared with their plain versions: {missing}")
@@ -1785,7 +2077,6 @@ def main() -> int:
           flush=True)
     w51 = layouts_and_depths(codec51, pcm51, packets51, nums51, counts)
     profile(lambda: codec51._decode(w51), "profile_51.txt")
-    del w51
 
     # phase 6: the retry ladder
     print(f"phase 6: retry ladder, B={B} stereo-16 forced-order packets on "
@@ -1802,7 +2093,7 @@ def main() -> int:
           f"({card})", flush=True)
     encode_layouts(codec51, pcm51, packets51, nums51, x51, n51, counts)
     profile(lambda: codec51._encode(x51, n51), "profile_enc51.txt")
-    del x51, n51, pcm51, packets51
+    del x51, n51, packets51
 
     # phase 8: the standalone-predictor route
     print(f"phase 8: predict_legacy encode, B={B} stereo-16 frames of {S} on "
@@ -1827,7 +2118,20 @@ def main() -> int:
     print(f"phase 11: ShardedCodec on phase 4's batch of {B} stereo-16 "
           f"frames on {kind} ({card})", flush=True)
     sharded(cfg, pcm, codec, counts, main4)
-    del pcm
+
+    # phase 12: the stacked decode, the raw decode and the profiling cuts
+    print(f"phase 12: stacked decode of phase 4's {B} stereo-16 and phase "
+          f"5's {B} 24-bit 5.1 frames, rice_decode, and the encode and "
+          f"decode up to each profiling cut, on {kind} ({card})", flush=True)
+    t12 = time.perf_counter()
+    stacked_decode(codec, codec51, w4, w51, pcm, pcm51, nums51, counts)
+    cut_times(codec, codec51, torch.from_numpy(pcm).to("cuda"), w4, w51)
+    print(f"  phase 12 took {time.perf_counter() - t12} s")
+    del pcm, pcm51, w4, w51
+    for key, (lib_ms, scatter_ms, merge_ms) in merges.items():
+        print(f"merge library call on {key}: torch scatter_ {lib_ms} ms, "
+              f"merge_scatter alone {scatter_ms} ms, whole merge {merge_ms} "
+              "ms")
 
     if "jax" in sys.modules:
         fail("jax was imported")

@@ -33,6 +33,7 @@ from alacjax_torch.ops import bitpack, fused_decode, predict, rice
 from alacjax_torch.oracle.encoder import PB_FACTOR
 from alacjax_torch.state import init_coefs_batched
 from alacjax_torch.types import DENSHIFT_DEFAULT, AlacConfig, KB0, MB0, PB0
+from torch_decode_cases import decode_lanes
 from torch_emit_cases import CAP, TILE_EDGE_S, emit_lanes
 from torch_predict_cases import CASES as PREDICT_CASES
 from torch_predict_cases import ORDER_PAIRS, predict_lanes, rice_lanes
@@ -165,9 +166,23 @@ def test_cpu_tensors_take_the_plain_version(rng):
         assert torch.equal(g, w)
     assert torch.equal(k_predict.rice_cost(x, 17, *RICE),
                        rice.rice_cost(x, 17, *RICE))
+    skip = torch.tensor([False, True, False, False])
+    got = k_decode.cursor_scan(words, lane[0], 16, 17, MB0, lane[1], KB0, WB,
+                               skip=skip)
+    want = fused_decode.cursor_scan(words, lane[0], 16, 17, MB0, lane[1],
+                                    KB0, WB, skip=skip)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    got = k_decode.decode_channel(words, lane[0], 16, 17, MB0, lane[1], KB0,
+                                  WB, None, None, None, None, raw=True)
+    want = fused_decode.decode_channel(words, lane[0], 16, 17, MB0, lane[1],
+                                       KB0, WB, None, None, None, None,
+                                       raw=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
     assert kernels.LAUNCHES == dict.fromkeys(
-        ("cost", "emit", "merge", "decode", "decode_hi", "predict",
-         "rice_cost"), 0)
+        ("cost", "emit", "merge", "decode", "decode_hi", "decode_cursor",
+         "decode_raw", "predict", "rice_cost"), 0)
 
 
 def test_other_devices_raise_instead_of_falling_back(rng):
@@ -647,3 +662,124 @@ def test_decode_kernel_damaged_rows_on_card(cuda, B, S, taps):
     want = k_decode.plain(*args, num=t["num"], taps=taps)
     assert not want[2].all()
     _same(k_decode.decode_channel(*args, num=t["num"], taps=taps), want)
+
+
+# ---------------------------------------------------------------------------
+# the decode kernel's stacked (row-mapped) launch, its cursor and raw
+# instances, and per-lane chanbits 16..33, against their plain versions
+# ---------------------------------------------------------------------------
+# (L, S, rows): one row per lane, and lanes stacked 3 and 2 to a row
+DECODE_CASES = [(33, 100, None), (96, 300, 32), (4096, 1024, 2048)]
+
+
+def _decode_case(cuda, L, S, rows, taps=30):
+    words, lane = decode_lanes(np.random.default_rng(L + S), L, S, rows,
+                               taps)
+    t = {k: torch.from_numpy(v).to(cuda) for k, v in lane.items()}
+    return torch.from_numpy(words.view(np.int32)).to(cuda), t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("taps", [8, 16, 30])
+@pytest.mark.parametrize("L,S,rows", DECODE_CASES)
+def test_decode_kernel_rows_and_chanbits33_on_card(cuda, L, S, rows, taps):
+    """Each decode instance with lanes stacked on fewer word rows and
+    per-lane chanbits 16..33 equals the plain version."""
+    words, t = _decode_case(cuda, L, S, rows, taps)
+    args = (words, t["start"], S, t["cb"], MB0, t["pb"], KB0, WB, t["coefs"],
+            t["mode"], t["order"], t["den"])
+    want = k_decode.plain(*args, num=t["num"], taps=taps, chanbits_max=33)
+    kernels.reset_launches()
+    got = k_decode.decode_channel(*args, num=t["num"], taps=taps,
+                                  chanbits_max=33)
+    assert kernels.LAUNCHES[k_decode.counter(taps)] == 1
+    _same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,S,rows", DECODE_CASES)
+def test_decode_cursor_kernel_on_card(cuda, L, S, rows):
+    """The cursor instance equals its plain version (skipped lanes stay
+    put) and ends where the full decode ends on every other lane."""
+    words, t = _decode_case(cuda, L, S, rows)
+    args = (words, t["start"], S, t["cb"], MB0, t["pb"], KB0, WB)
+    kw = dict(chanbits_max=33, skip=t["skip"], num=t["num"])
+    want = k_decode.plain_cursor(*args, **kw)
+    kernels.reset_launches()
+    got = k_decode.cursor_scan(*args, **kw)
+    assert kernels.LAUNCHES["decode_cursor"] == 1
+    _same(got, want)
+    _, end, _ = k_decode.decode_channel(
+        *args, t["coefs"], t["mode"], t["order"], t["den"], num=t["num"],
+        taps=30, chanbits_max=33)
+    keep = ~t["skip"]
+    assert torch.equal(got[0][keep], end[keep])
+    assert torch.equal(got[0][t["skip"]], t["start"][t["skip"]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,S,rows", DECODE_CASES)
+def test_decode_raw_kernel_on_card(cuda, L, S, rows):
+    """The raw instance equals its plain version, per-lane bit sizes and
+    one bit size for every lane."""
+    words, t = _decode_case(cuda, L, S, rows)
+    for cb, cb_max in ((t["cb"], 33), (17, None)):
+        args = (words, t["start"], S, cb, MB0, t["pb"], KB0, WB, None, None,
+                None, None)
+        want = k_decode.plain(*args, num=t["num"], chanbits_max=cb_max,
+                              raw=True)
+        kernels.reset_launches()
+        got = k_decode.decode_channel(*args, num=t["num"],
+                                      chanbits_max=cb_max, raw=True)
+        assert kernels.LAUNCHES["decode_raw"] == 1
+        _same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,S", [(67, 100), (4096, 1024)])
+def test_cost_kernel_chanbits33_on_card(cuda, L, S):
+    """The cost kernel at per-lane chanbits 16..33 equals the plain
+    version: the search (orders 4 and 8, two machines) and the trial."""
+    x, cb, c0 = (torch.from_numpy(v).to(cuda) for v in
+                 predict_lanes(np.random.default_rng(L), L, S, n_orders=1))
+    for orders, dual in (((4, 8), True), ((8,), False)):
+        want = k_cost.plain(x, c0[0], orders, cb, 9, *RICE, dual=dual)
+        _same(k_cost.pc_block_cost2(x, c0[0], orders, cb, 9, *RICE,
+                                    dual=dual), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nch,depth", [(2, 16), (6, 24)])
+def test_stacked_decode_on_card(cuda, nch, depth):
+    """The cursor+stacked decode on the card equals the chained decode
+    (an escaped frame and a partial one among them), with one cursor
+    launch per channel but the last and one stacked decode launch."""
+    from alacjax_torch.oracle import ALACEncoder
+    S = 256
+    cfg = AlacConfig(bit_depth=depth, num_channels=nch, frame_length=S)
+    rng = np.random.default_rng(nch + depth)
+    t = np.arange(S)
+    lim = 1 << (depth - 1)
+    pcm = np.stack([np.round(np.sin(t * (0.01 + 0.002 * b)
+                                    + np.arange(nch)[:, None]) * lim / 8)
+                    .astype(np.int64) + rng.integers(-30, 30, (nch, S))
+                    for b in range(12)])
+    pcm[4] = rng.integers(-lim, lim, (nch, S))              # escapes
+    pcm[7, :, 100:] = 0                                     # partial
+    enc = ALACEncoder(cfg, independent_frames=True)
+    packets = [enc.encode_packet(f[:, :100] if b == 7 else f)
+               for b, f in enumerate(pcm)]
+    codec = TorchCodec(cfg, chunk=12, device="cuda")
+    stacked = TorchCodec(cfg, chunk=12, device="cuda", decode_stacked=True)
+    words = torch.from_numpy(bitpack.bytes_to_words(
+        packets, codec.num_words).view(np.int32)).to(cuda)
+    want = codec._decode(words)
+    kernels.reset_launches()
+    got = stacked._decode(words)
+    assert kernels.LAUNCHES["decode_cursor"] == nch - 1
+    assert kernels.LAUNCHES["decode"] == 1
+    _same(got, want)
+    out, nums = stacked.decode_frames_ex(packets)
+    assert stacked.fallback_frames == 0
+    assert nums[7] == 100
+    np.testing.assert_array_equal(out, pcm)

@@ -24,6 +24,19 @@ checkout reports:
     and the shortest trip).
 The card's name and power limit come first, then one JSON line per DIR.
 Needs a card; exits nonzero without one.
+
+    python3 tools/torch_legacy_ab.py --chanbits33 DIR [DIR ...]
+
+asks instead whether a checkout's cost and decode kernels agree with its
+plain torch versions at per-lane chanbits 33 (one past a 32-bit channel,
+where the C idiom ``(x << (32 - bits)) >> (32 - bits)`` shifts by -1).
+It runs the cost kernel (orders 4 and 8 with two machines, order 8 with
+one) and the 8-, 16- and 30-tap decode on the inputs of this
+repository's tests/torch_predict_cases.py and tests/torch_decode_cases.py
+(per-lane chanbits 16..33; L=4096, S=1024), and prints, per kernel and
+output, how many elements differ from the plain version on the 33-bit
+lanes and on the others.  A checkout whose decode entry refuses a bound
+of 33 runs with chanbits_max=32 (its C entry checks only the bound).
 """
 
 import inspect
@@ -33,6 +46,7 @@ import subprocess
 import sys
 import time
 
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B = 4096
 S = 4096
 ITERS = 3
@@ -181,17 +195,79 @@ def child(root: str) -> dict:
                 legacy_calls=rows)
 
 
+def chanbits33(root: str) -> dict:
+    """Elements of each cost and decode output that differ from the plain
+    version, on the lanes at chanbits 33 and on the others."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    sys.path.insert(1, os.path.join(HERE, "tests"))
+    import numpy as np
+    import torch
+    from alacjax_torch.kernels import cost as kc, decode as kd
+    from alacjax_torch.types import DENSHIFT_DEFAULT, KB0, MB0, PB0
+    from torch_decode_cases import RICE, decode_lanes
+    from torch_predict_cases import predict_lanes
+
+    if not torch.cuda.is_available():
+        sys.exit("no CUDA device")
+    L, S = 4096, 1024
+    out = dict(dir=root)
+
+    def diff(name, got, want, lane33):
+        for i, (g, w) in enumerate(zip(got, want)):
+            bad = g.to(torch.int64) != w.to(torch.int64)
+            bad = (bad.reshape(bad.shape[0], -1).sum(1) if bad.dim() > 1
+                   else bad.to(torch.int64))
+            out[f"{name} output {i}"] = dict(
+                lanes33=int(bad[lane33].sum()), others=int(bad[~lane33].sum()))
+
+    x, cb, c0 = (torch.from_numpy(v).cuda() for v in predict_lanes(
+        np.random.default_rng(L + 33), L, S, n_orders=1))
+    for orders, dual in (((4, 8), True), ((8,), False)):
+        args = (x, c0[0], orders, cb, DENSHIFT_DEFAULT, MB0, PB0, KB0,
+                (1 << KB0) - 1)
+        n = len(orders)
+        pairs = [(g.reshape(n * L, -1), w.reshape(n * L, -1)) for g, w in zip(
+            kc.pc_block_cost2(*args, dual=dual), kc.plain(*args, dual=dual))
+            if g is not None]
+        diff(f"cost orders {orders} dual {dual}", [p[0] for p in pairs],
+             [p[1] for p in pairs], (cb == 33).repeat(n))
+    words, lane = decode_lanes(np.random.default_rng(L + 33), L, S)
+    w = torch.from_numpy(words.view(np.int32)).cuda()
+    t = {k: torch.from_numpy(v).cuda() for k, v in lane.items()}
+    mb0, kb, wb = RICE
+    for taps in (8, 16, 30):
+        args = (w, t["start"], S, t["cb"], mb0, t["pb"], kb, wb,
+                t["coefs"][:, :taps].contiguous(), t["mode"], t["order"],
+                t["den"])
+        want = kd.plain(*args, num=t["num"], taps=taps, chanbits_max=33)
+        try:
+            got = kd.decode_channel(*args, num=t["num"], taps=taps,
+                                    chanbits_max=33)
+        except (RuntimeError, ValueError):
+            got = kd.decode_channel(*args, num=t["num"], taps=taps,
+                                    chanbits_max=32)
+            out["decode bound"] = 32
+        torch.cuda.synchronize()
+        diff(f"decode taps {taps}", got, want, t["cb"] == 33)
+    return out
+
+
 def main() -> int:
-    if len(sys.argv) >= 3 and sys.argv[1] == "--child":
-        print("RESULT " + json.dumps(child(sys.argv[2])), flush=True)
+    if len(sys.argv) >= 4 and sys.argv[1] == "--child":
+        fn = chanbits33 if sys.argv[2] == "--chanbits33" else child
+        print("RESULT " + json.dumps(fn(sys.argv[3])), flush=True)
         return 0
+    mode = "--default"
+    if len(sys.argv) >= 2 and sys.argv[1] == "--chanbits33":
+        mode = sys.argv.pop(1)
     if len(sys.argv) < 2:
         sys.exit(__doc__)
     print(smi("name,power.limit", "csv,noheader"), flush=True)
     for d in sys.argv[1:]:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--child", d], capture_output=True, text=True,
-                              timeout=1200)
+                               "--child", mode, d], capture_output=True,
+                              text=True, timeout=1200)
         lines = [ln for ln in proc.stdout.splitlines()
                  if ln.startswith("RESULT ")]
         if proc.returncode != 0 or not lines:
