@@ -29,14 +29,30 @@ Modules:
   * kernels/, csrc/, ops/ — the CUDA kernels, their wrappers and their
                   plain torch versions
   * types, cookie, bitbuffer, oracle/, native/ — copies of alacjax's
-                  host modules
+                  host modules; the package exports alacjax's public names
+                  (AlacError and its subclasses, ElementTag, parse_cookie,
+                  serialize_cookie, BitBuffer, ALACEncoder, ALACDecoder,
+                  __version__) from them
 """
 
-from .types import AlacConfig
+from .types import (
+    AlacConfig, AlacError, AlacParamError, AlacUnimplementedError,
+    ElementTag,
+)
+from .cookie import parse_cookie, serialize_cookie
+from .bitbuffer import BitBuffer
+from .oracle import ALACDecoder, ALACEncoder
+from .reader import AlacReader
 
 from .codec import TorchCodec, encode_stream_device, encode_streams, get_codec
 from .parallel import ShardedCodec
-from .reader import AlacReader
 
-__all__ = ["AlacConfig", "AlacReader", "ShardedCodec", "TorchCodec",
-           "encode_stream_device", "encode_streams", "get_codec"]
+__version__ = "0.1.0"
+
+__all__ = [
+    "AlacConfig", "AlacError", "AlacParamError", "AlacUnimplementedError",
+    "ElementTag", "parse_cookie", "serialize_cookie", "BitBuffer",
+    "ALACEncoder", "ALACDecoder", "AlacReader", "__version__",
+    "ShardedCodec", "TorchCodec", "encode_stream_device", "encode_streams",
+    "get_codec",
+]

@@ -16,8 +16,8 @@ from .types import AlacParamError
 class BitBuffer:
     """Mutable bit cursor over a bytearray.
 
-    Mirrors BitBufferInit/Read/Write/Advance/ByteAlign/GetPosition from
-    the reference, as methods.
+    Mirrors BitBufferInit/Read/ReadSmall/ReadOne/Write/Advance/Rewind/
+    ByteAlign/GetPosition/Reset from the reference, as methods.
     """
 
     __slots__ = ("buf", "bitpos", "byte_size")
@@ -43,6 +43,13 @@ class BitBuffer:
     def advance(self, num_bits: int) -> None:
         """BitBufferAdvance."""
         self.bitpos += num_bits
+
+    def rewind(self, num_bits: int) -> None:
+        """BitBufferRewind."""
+        self.bitpos -= num_bits
+
+    def reset(self) -> None:
+        self.bitpos = 0
 
     def byte_align(self, add_zeros: bool) -> None:
         """BitBufferByteAlign: pad cursor to the next byte boundary.
@@ -86,6 +93,18 @@ class BitBuffer:
             pos += take
         self.bitpos = end_bit
         return result
+
+    def read_small(self, num_bits: int) -> int:
+        return self.read(num_bits)
+
+    def read_one(self) -> int:
+        return self.read(1)
+
+    def peek(self, num_bits: int) -> int:
+        pos = self.bitpos
+        val = self.read(num_bits)
+        self.bitpos = pos
+        return val
 
     def peek_word(self) -> int:
         """Load 32 bits starting at the cursor, zero-padded past the end —

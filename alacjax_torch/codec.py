@@ -60,7 +60,8 @@ from .oracle.encoder import (
     PB_FACTOR, SEARCH_ORDERS, SEARCH_STAGES, bytes_shifted_for_depth,
 )
 from .types import (
-    DENSHIFT_DEFAULT, AlacConfig, AlacParamError, kALACMaxCoefs,
+    DENSHIFT_DEFAULT, MAX_DATATYPE_BITS_16, MAX_PREFIX_16, MAX_PREFIX_32,
+    AlacConfig, AlacParamError, ElementTag, kALACMaxCoefs,
 )
 
 from .kernels import cost as k_cost
@@ -998,7 +999,11 @@ def _parse_element(w, bitpos, num, tag, width: int, config: AlacConfig,
     bs_f = (hdr >> 1) & 3
     esc = (hdr & 1) == 1
     bs = bytes_shifted_for_depth(depth)
-    err = ((rtag != int(tag)) | (unused != 0)
+    # a mono slot takes an SCE or an LFE tag, as the oracle and the
+    # reference decoder do (FFmpeg writes an SCE for 5.1's LFE)
+    tag_ok = (((rtag == int(ElementTag.SCE)) | (rtag == int(ElementTag.LFE)))
+              if width == 1 else rtag == int(tag))
+    err = (~tag_ok | (unused != 0)
            | (~esc & (bs_f != bs)) | (esc & (bs_f != 0)))
 
     # partial (tail) frames: 32-bit numSamples right after the header;
@@ -1246,6 +1251,35 @@ def _num_words(config: AlacConfig) -> int:
     return (config.max_escape_packet_bytes(config.frame_length) + 3) // 4 + 2
 
 
+def _max_packet_bytes(config: AlacConfig) -> int:
+    """The longest legal packet of ``config`` without DSE or FIL elements.
+    Per element: its tag, instance, unused bits, flags, 32-bit sample
+    count and mix fields; per channel: mode/denshift/pb/order and 31
+    coefficients; per sample and channel at most 16 shifted-out bits, one
+    value code (9 prefix bits and the larger of chanbits and kb) and one
+    zero-run code (9 prefix bits and 16); then the END tag."""
+    S, C = config.frame_length, config.num_channels
+    value = MAX_PREFIX_32 + max(config.bit_depth + 1, config.kb)
+    run = MAX_PREFIX_16 + MAX_DATATYPE_BITS_16
+    bits = (len(config.elements) * (3 + 4 + 12 + 4 + 32 + 16)
+            + C * (16 + 16 * 31 + S * (16 + value + run)) + 3)
+    return (bits + 7) // 8
+
+
+def packet_image_words(config: AlacConfig, packets: list[bytes]
+                       ) -> tuple[int, np.ndarray]:
+    """The word width of a chunk's device image, and the mask of packets
+    longer than any legal one (``_max_packet_bytes``).  The width is the
+    escape packet's (``_num_words``), widened to the chunk's longest legal
+    packet: a legal packet may be longer than the escape packet (a weak
+    predictor forced on noise).  Masked packets are left out of the
+    image; the caller decodes them elsewhere or refuses them."""
+    lens = np.fromiter(map(len, packets), dtype=np.int64, count=len(packets))
+    over = lens > _max_packet_bytes(config)
+    longest = int(lens[~over].max(initial=0))
+    return max(_num_words(config), -(-longest // 4) + 2), over
+
+
 class TorchCodec:
     """Batched codec for one AlacConfig on one torch device: encode and
     decode whole chunks of frames per call.  The work runs on the card
@@ -1362,7 +1396,11 @@ class TorchCodec:
     def decode_frames_ex(self, packets: list[bytes]
                          ) -> tuple[np.ndarray, np.ndarray]:
         """list of packets -> ((nf, C, S) planar int64, (nf,) sample
-        counts).  When many lanes of a chunk are flagged (the usual sign
+        counts).  A chunk holding a packet longer than the escape packet
+        (legal, though no encoder writes one) gets a word image wide
+        enough for it; a packet longer than any legal one
+        (``packet_image_words``) skips the card and goes to the oracle.
+        When many lanes of a chunk are flagged (the usual sign
         of a legal stream of order above 8), the chunk decodes again at
         16 and then 30 taps; lanes still flagged (frames outside the
         device grammar) decode on the scalar oracle.  Pipelined as
@@ -1378,21 +1416,23 @@ class TorchCodec:
         def dispatch(off):
             blk = packets[off:off + self.chunk]
             n = len(blk)
-            wh = bitpack.bytes_to_words(blk, self.num_words)
+            width, over = packet_image_words(cfg, blk)
+            wh = bitpack.bytes_to_words(
+                [b"" if o else p for p, o in zip(blk, over)], width)
             wdev = self._to_device(wh.view(np.int32), self.chunk)
             pcm, err, num = self._decode(wdev)
-            return off, n, blk, wdev, self._to_host(pcm[:n], err[:n],
-                                                    num[:n])
+            return off, n, blk, over, wdev, self._to_host(
+                pcm[:n], err[:n], num[:n])
 
         offs = list(range(0, nf, self.chunk))
         pending = dispatch(offs[0]) if offs else None
         for i in range(len(offs)):
-            off, n, blk, wdev, copies = pending
+            off, n, blk, over, wdev, copies = pending
             pending = dispatch(offs[i + 1]) if i + 1 < len(offs) else None
             pcm, err, num = self._ready(*copies)
             out[off:off + n] = pcm
             nums[off:off + n] = num
-            err = err.copy()
+            err = err & ~over
             # the retry rule and threshold of alacjax's JaxCodec: a few
             # flagged lanes (corruption) go straight to the oracle; chunk
             # k's words are still on the card for the retry
@@ -1404,6 +1444,7 @@ class TorchCodec:
                     out[off + fixed] = pcm_r[idx].cpu().numpy()
                     nums[off + fixed] = num_r[idx].cpu().numpy()
                     err[fixed] = False
+            err |= over
             self.fallback_frames += int(err.sum())
             if err.any():
                 dec = OracleDecoder(cfg)

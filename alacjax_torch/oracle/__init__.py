@@ -1,8 +1,9 @@
 """Scalar NumPy oracle — the executable specification of every codec
 stage: the port's copy of alacjax/oracle/, so the port imports nothing
 of the JAX package.  The codec's decode sends the lanes its device
-program still flags to ``ALACDecoder``; ``chip_smoke.py`` builds its
-forced-order packets from ``ag``, ``dp`` and ``matrix``.
+program still flags to ``ALACDecoder``; the differential campaign
+(tools/torch_fuzz_soak.py, chip_smoke.py phase 13) holds the codec to it
+and builds its legal packets with its header writers and ``matrix``.
 
 Written straight from SURVEY.md §2 (reference: codec/matrix_{enc,dec}.c,
 dp_{enc,dec}.c, ag_{enc,dec}.c, ALACEncoder.cpp, ALACDecoder.cpp).  This

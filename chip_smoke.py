@@ -109,8 +109,27 @@ Phases, each of which exits nonzero on failure:
      stacked and chained decodes in turns; rice_decode of the stereo
      frames' first channel (the raw instance), ending where the cursor
      ends; then the encode of phase 4's batch and the decodes of phases
-     4 and 5 up to each profiling cut (``stop_at``), ms per batch.
-Each path (phases 4-12) runs with the launch counts set to 0 just before
+     4 and 5 up to each profiling cut (``stop_at``), ms per batch;
+ 13. the differential campaign of tools/torch_fuzz_soak.py at B=4096
+     lanes of S=4096 (FUZZ_SIZES cuts only distinct packets and oracle
+     lanes): one grammar round per shape (random legal header
+     parameters, orders up to 30, tiled and permuted so each warp mixes
+     packets; the 30-tap device decode flags no lane and equals the
+     native decoder, decode_frames_ex's ladder returns the same PCM),
+     the DSE/FIL and deviant-bytesShifted batches (the device flags
+     exactly those lanes, decode_frames_ex gives the oracle's PCM), one
+     content round per shape (adversarial frames with partial tails,
+     packets equal to the native encoder on every lane), one exhaustive
+     round per shape, then the pathological fixtures of five configs and
+     the eight escape-flip pairs (packets equal to the native encoder's,
+     the escape bit on its side, lossless); the oracle holds the first
+     lanes of each.  Every kernel signature no earlier phase produced
+     (``signature``: per-lane vectors marked uniform or mixed)
+     is compared on its first PREFIX samples and FUZZ_LANES lanes with
+     its plain version, run on the host in worker processes.  Prints
+     rounds and lanes per kind, frames sent to the oracle, corpus
+     building seconds and the phase's seconds.
+Each path (phases 4-13) runs with the launch counts set to 0 just before
 it and read just after; a kernel of the path that was not launched
 fails the run.  The line before the last is a JSON object of per-kernel
 results ("launches" sums the paths' counts; "ms", "plain_ms" and
@@ -151,6 +170,12 @@ N_NATIVE_STREAMS = 64    # stereo streams held to the stateful native encoder
 N51_STREAMS = 512        # phase 10: 24-bit 5.1 streams ...
 N51 = 3                  # ... of 3 packets
 N_NATIVE_51 = 8          # 5.1 streams held to the stateful native encoder
+# phase 13: tools/torch_fuzz_soak.py's campaign at S = B = 4096, cut in
+# distinct packets and oracle lanes (never S, B or a shape) to its budget
+FUZZ_SIZES = dict(grammar=32, grammar_oracle=2, content_oracle=2,
+                  exhaustive_oracle=1, special=2)
+FUZZ_SEED = 0            # the round seed (grammar 10M + it, content 20M + ...)
+FUZZ_LANES = 256         # lanes of a new phase-13 signature's compare
 REPLACES = {
     "cost": "alacjax/ops/pallas/cost_pallas.py:346",
     "emit": "alacjax/ops/pallas/emit_pallas.py:257",
@@ -195,6 +220,7 @@ PATH_KERNELS = {         # the kernels each path must launch
     "phase 11": ("cost", "emit", "merge", "decode"),
     "phase 12": ("decode", "decode_cursor"),
     "phase 12 raw": ("decode_raw",),
+    "phase 13": ("cost", "emit", "merge", "decode", "decode_hi"),
 }
 HBM_BYTES_PER_S = 3.35e12    # one H100 SXM's device memory rate
 # Lane operations one Hopper SM issues per clock: four schedulers, each
@@ -462,74 +488,28 @@ def max_abs_err(got, want) -> int:
     return worst
 
 
+def fuzz_tool():
+    """tools/torch_fuzz_soak.py beside this script: the repo's jax-free
+    writer of legal packets and its differential campaign."""
+    tools = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    return importlib.import_module("torch_fuzz_soak")
+
+
 def forced_order_packet(cfg, pcm, orders, modes, mixres=2):
     """A legal packet with forced per-channel predictor orders and modes
-    (the element layout of ALACEncoder.cpp, with the search replaced by
-    fixed parameters): a jax-free copy of
-    tests/test_high_order_decode.py :: build_packet at its default
-    knobs, byte for byte.  pcm is planar (C, n); n < frame_length makes a
-    partial frame."""
-    import numpy as np
-    from alacjax_torch.bitbuffer import BitBuffer
-    from alacjax_torch.oracle import ag, dp, matrix
-    from alacjax_torch.oracle.encoder import (
-        DEFAULT_MIX_BITS, PB_FACTOR, _rice_params, _write_channel_params,
-        _write_element_header,
-    )
-    from alacjax_torch.types import DENSHIFT_DEFAULT, ElementTag
-
-    bits = BitBuffer(byte_size=4 * cfg.max_escape_packet_bytes(
-        cfg.frame_length) + 256)
-    num = pcm.shape[1]
-    ch = 0
-    tag_counters = {}
-    for tag, width in cfg.elements:
-        instance = tag_counters.get(int(tag), 0)
-        tag_counters[int(tag)] = instance + 1
-        _write_element_header(bits, tag, instance, num < cfg.frame_length,
-                              0, False, num)
-        his = [pcm[ch + i].astype(np.int64) for i in range(width)]
-        if width == 2:
-            chanbits = cfg.bit_depth + 1
-            bits.write(DEFAULT_MIX_BITS, 8)
-            bits.write(mixres & 0xFF, 8)
-            u, v = matrix.mix(his[0], his[1], DEFAULT_MIX_BITS, mixres)
-            half, mask = 1 << (chanbits - 1), (1 << chanbits) - 1
-            streams = [((u.astype(np.int64) + half) & mask) - half,
-                       ((v.astype(np.int64) + half) & mask) - half]
-        else:
-            chanbits = cfg.bit_depth
-            bits.write(0, 8)
-            bits.write(0, 8)
-            streams = [his[0]]
-        residuals = []
-        for i, s in enumerate(streams):
-            order, mode = orders[ch + i], modes[ch + i]
-            coefs = np.zeros(32, dtype=np.int64)
-            coefs[:3] = dp.init_coefs(DENSHIFT_DEFAULT)[:3]
-            crng = np.random.default_rng(1000 * order + ch + i)
-            if order > 3:
-                coefs[3:order] = crng.integers(-64, 64, order - 3)
-            res = dp.pc_block(s, coefs.copy(), order, chanbits,
-                              DENSHIFT_DEFAULT)
-            if mode:
-                res = dp.pc_block(res, coefs[:0], 31, chanbits, 0)
-            _write_channel_params(bits, mode, DENSHIFT_DEFAULT, PB_FACTOR,
-                                  coefs, order)
-            residuals.append(res)
-        for res in residuals:
-            ag.dyn_comp(_rice_params(cfg, num, PB_FACTOR), bits, res, num,
-                        chanbits)
-        ch += width
-    bits.write(int(ElementTag.END), 3)
-    bits.byte_align(add_zeros=True)
-    return bits.to_bytes()
+    at the default knobs (denshift, pb factor, mixbits, bytesShifted 0):
+    tools/torch_fuzz_soak.py :: build_packet.  pcm is planar (C, n);
+    n < frame_length makes a partial frame."""
+    return fuzz_tool().build_packet(cfg, pcm, orders, modes, mixres=mixres)
 
 
 @contextlib.contextmanager
-def recording(calls):
+def recording(calls, keep=None):
     """Wrap every kernel wrapper with a recorder that appends
-    (kernel, wrapper, plain version, args, kwargs) to ``calls``."""
+    (kernel, wrapper, plain version, args, kwargs) to ``calls`` or, with
+    ``keep``, what ``keep`` returns for that tuple unless it is None."""
     saved = []
     for mod_name, fn_name, plain_name, key in WRAPPERS:
         mod = importlib.import_module(mod_name)
@@ -540,7 +520,10 @@ def recording(calls):
             name = _key or _mod.counter(
                 kwargs.get("taps", _mod.fused_decode.TAPS),
                 kwargs.get("raw", False))
-            calls.append((name, _fn, getattr(_mod, _plain), args, kwargs))
+            call = (name, _fn, getattr(_mod, _plain), args, kwargs)
+            call = call if keep is None else keep(call)
+            if call is not None:
+                calls.append(call)
             return _fn(*args, **kwargs)
 
         saved.append((mod, fn_name, wrapper))
@@ -554,17 +537,27 @@ def recording(calls):
 
 def signature(call):
     """What sets a call apart: the kernel, the sample count, the static
-    arguments' values (order, chanbits, dual, taps, ...) and which
-    arguments are per-lane tensors."""
+    arguments' values (order, chanbits, dual, taps, ...), which arguments
+    are per-lane tensors, and whether each per-lane vector (per-lane
+    chanbits, pb, mode, order, denshift and num, a decode's start bits)
+    is uniform or mixed.  The width of a decode's word image is left
+    out: it sets where the kernel reads, not what it computes, and the
+    host API widens it chunk by chunk."""
     import torch
     name, _, _, args, kwargs = call
 
     def part(v):
-        return ("lane", v.dim()) if isinstance(v, torch.Tensor) else v
-    stacked = ((("lanes per row", args[1].shape[0] // args[0].shape[0]),)
-               if name in DECODES else ())
-    return ((name, tuple(args[0].shape[1:])) + stacked
-            + tuple(map(part, args[1:]))
+        if not isinstance(v, torch.Tensor):
+            return v
+        if v.dim() == 1 and v.numel():
+            return ("lane", "mixed" if bool((v.min() != v.max()).item())
+                    else "uniform")
+        return ("lane", v.dim())
+    if name in DECODES:
+        head = (name, ("lanes per row", args[1].shape[0] // args[0].shape[0]))
+    else:
+        head = (name, tuple(args[0].shape[1:]))
+    return (head + tuple(map(part, args[1:]))
             + tuple((k, part(v)) for k, v in sorted(kwargs.items())))
 
 
@@ -580,25 +573,59 @@ def one_per_signature(calls, seen=None):
     return out
 
 
-def prefix(call, n: int):
+def prefix(call, n: int, lanes: int | None = None):
     """A scan kernel's call cut to its first n samples: the input's
     leading columns (a decode: its sample count; each lane's first n
     samples read the same bits), per-lane sample counts clamped to n.
-    Merge calls, and calls already at most n long, stay whole."""
+    Merge calls, and calls already at most n long, keep their samples.
+    With ``lanes`` a call of more lanes is also cut to that many (up to
+    4 lanes of each value of every per-lane vector but a decode's start
+    bits, so a mixed vector stays mixed, then its first lanes; a merge
+    call's first rows), and every tensor is copied, so the call outlives
+    the buffers it was made on."""
+    import numpy as np
     import torch
     name, wrapper, plain, args, kwargs = call
+    was_cut = True
     if name in DECODES:
         if args[2] <= n:
-            return call, False
-        args = tuple(args[:2]) + (n,) + tuple(args[3:])
+            was_cut = False
+        else:
+            args = tuple(args[:2]) + (n,) + tuple(args[3:])
     elif name not in ("cost", "emit", "predict", "rice_cost") or \
             args[0].shape[1] <= n:
-        return call, False
+        was_cut = False
     else:
         args = (args[0][:, :n].contiguous(),) + tuple(args[1:])
-    if kwargs.get("num") is not None:
+    if was_cut and kwargs.get("num") is not None:
         kwargs = dict(kwargs, num=torch.clamp(kwargs["num"], max=n))
-    return (name, wrapper, plain, args, kwargs), True
+    if lanes is None:
+        return (name, wrapper, plain, args, kwargs), was_cut
+    L = args[1].shape[0] if name in DECODES else args[0].shape[0]
+    idx = None
+    if L > lanes and args[0].shape[0] == L:
+        pick = []
+        for i, v in enumerate(list(args) + list(kwargs.values())):
+            if (isinstance(v, torch.Tensor) and v.dim() == 1
+                    and v.shape[0] == L and not (name in DECODES and i == 1)):
+                vals = v.cpu().numpy()
+                for u in np.unique(vals)[:lanes // 8]:
+                    pick.extend(np.nonzero(vals == u)[0][:4].tolist())
+        pick = set(pick[:lanes])
+        pick.update(i for i in range(lanes * 2) if i not in pick)
+        idx = torch.tensor(sorted(pick)[:lanes], device=args[0].device)
+
+    def cut(v):
+        if not isinstance(v, torch.Tensor):
+            return v
+        if idx is not None and v.dim() >= 1 and v.shape[0] == L:
+            v = v[idx]
+        elif idx is not None and v.dim() == 3 and v.shape[1] == L:
+            v = v[:, idx]
+        return v.clone().contiguous()
+    return ((name, wrapper, plain, tuple(map(cut, args)),
+             {k: cut(v) for k, v in kwargs.items()}),
+            was_cut or idx is not None)
 
 
 def describe(name: str, args, kwargs) -> str:
@@ -656,17 +683,53 @@ def against_plain(call, int_ops_per_s: float):
             ops / max(lane_samples, 1))
 
 
-def compare_kernels(calls, rows, int_ops_per_s: float, cut: bool = False):
-    """Phase 3: each recorded call through its kernel and through its
-    plain version on the same inputs, on the card, beside the call's
-    bound.  With ``cut`` a scan call longer than PREFIX samples is
+def host_plain(plain, args, kwargs, got):
+    """compare_kernels' host route, in a worker process: the plain version on the
+    host against the kernel's outputs ``got``: (max |kernel - plain|, or
+    -1 where their shapes differ, and the plain version's ms)."""
+    import torch
+    t0 = time.perf_counter()
+    want = plain(*args, **kwargs)
+    ms = (time.perf_counter() - t0) * 1e3
+    worst = 0
+    for a, b in zip(got, want if isinstance(want, tuple) else (want,),
+                    strict=True):
+        if a.shape != b.shape:
+            return -1, ms
+        if a.numel():
+            worst = max(worst, int((a.to(torch.int64) - b.to(torch.int64))
+                                   .abs().max()))
+    return worst, ms
+
+
+def compare_kernels(calls, rows, int_ops_per_s: float = 0.0,
+                    cut: bool = False, pool=None):
+    """Each recorded call through its kernel and through its plain
+    version on the same inputs, exactly equal, or the run fails.  Phase
+    3: both on the card, beside the call's bound, all summed into
+    ``rows``; with ``cut`` a scan call longer than PREFIX samples is
     compared on its first PREFIX; the kernel on the whole input is then
     held to its plain version too, and its time and bound are printed
-    beside."""
+    beside.  Phase 13 (``pool``, calls already cut by ``prefix``): the
+    kernel once on the card and the plain version on the host in the
+    pool's workers (``host_plain``); only max_abs_err enters ``rows``,
+    since one launch on a cut input times its overhead."""
+    import torch
+
+    def host(v):
+        return v.cpu() if isinstance(v, torch.Tensor) else v
+    jobs = []
     for call in calls:
         whole = call
         call, was_cut = prefix(call, PREFIX) if cut else (call, False)
         name, wrapper, plain, args, kwargs = call
+        if pool is not None:
+            got, ms = timed(lambda: wrapper(*args, **kwargs), reps=1)
+            got = tuple(map(host, got if isinstance(got, tuple) else (got,)))
+            jobs.append((name, args, kwargs, ms, pool.submit(
+                host_plain, plain, tuple(map(host, args)),
+                {k: host(v) for k, v in kwargs.items()}, got)))
+            continue
         ms, plain_ms, err, bound_ms, bytes_ms, ops_ms, per = against_plain(
             call, int_ops_per_s)
         row = rows[name]
@@ -697,6 +760,18 @@ def compare_kernels(calls, rows, int_ops_per_s: float, cut: bool = False):
         row["bound_ms"] += bound_ms
         row["bytes_ms"] += bytes_ms
         row["ops_ms"] += ops_ms
+    for name, args, kwargs, ms, job in jobs:
+        err, plain_ms = job.result()
+        lanes = args[1].shape[0] if name in DECODES else args[0].shape[0]
+        print(f"  {name:9s} new signature on {lanes} lanes "
+              f"{describe(name, args, kwargs)}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.1f} ms on a host core, max_abs_err {err}",
+              flush=True)
+        if err:
+            fail(f"the {name} kernel disagrees with its plain version"
+                 f"{' (shapes differ)' if err < 0 else ''}")
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+    return len(calls)
 
 
 def ragged_emit_call(seed: int = 5):
@@ -971,11 +1046,14 @@ def make_hi(cfg):
     from bench import make_music
     n = N_DISTINCT_HI
     x = make_music(n, S, seed=30)
-    packets = []
+    soak = fuzz_tool()
+    params = []
     for i in range(n):
-        orders = [9 + i % 22, 9 + (7 * i + 3) % 22]
         mode = 15 if (i // 22) % 2 else 0
-        packets.append(forced_order_packet(cfg, x[i], orders, [mode, mode]))
+        params.append(soak.Params([9 + i % 22, 9 + (7 * i + 3) % 22],
+                                  [mode, mode]))
+    with soak.host_pool() as pool:
+        packets = soak.build_packets(cfg, list(x), params, pool)
     reps = B // n
     return np.tile(x, (reps, 1, 1)), packets * reps
 
@@ -1929,6 +2007,63 @@ def cut_times(codec, codec51, x, w4, w51):
               flush=True)
 
 
+def fuzz_campaign(counts, seen, rows, card: str):
+    """Phase 13: the differential campaign of tools/torch_fuzz_soak.py on
+    the card, one round of every kind at FUZZ_SEED and the fixed
+    corpora, recording the first call of every kernel signature no
+    earlier phase produced (``seen`` holds phase 3's) and holding each
+    exactly against its plain version.  One pool of host workers builds
+    the packets and runs the plain versions."""
+    import dataclasses
+    soak = fuzz_tool()
+    sizes = dataclasses.replace(soak.CARD, **FUZZ_SIZES)
+    t0 = time.perf_counter()
+    pool = soak.host_pool()
+    stats = soak.Stats()
+    codecs = soak.make_codecs(sizes, "cuda")
+    new = []
+
+    def keep(call):
+        key = signature(call)
+        if key in seen:
+            return None
+        seen.add(key)
+        return prefix(call, PREFIX, FUZZ_LANES)[0]
+
+    def log(msg, **kw):
+        print(f"  {msg}", **kw)
+    try:
+        try:
+            with path_run("phase 13", counts), recording(new, keep):
+                soak.one_round(FUZZ_SEED, sizes, "cuda", codecs, stats,
+                               log=log, pool=pool)
+                soak.fixed_corpora(sizes, "cuda", stats, log=log)
+        except soak.Divergence as e:
+            fail(f"phase 13: {e}")
+        run_s = time.perf_counter() - t0
+        report(stats, sizes, run_s)
+        n = compare_kernels(new, rows, pool=pool)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    print(f"  {n} new kernel signatures held to their plain versions on "
+          f"their first {PREFIX} samples and {FUZZ_LANES} lanes: "
+          f"max_abs_err 0")
+    print(f"  phase 13 took {time.perf_counter() - t0} s on {card}")
+
+
+def report(stats, sizes, run_s: float):
+    """Phase 13's counts: rounds and lanes per kind, frames to the
+    oracle, corpus building time."""
+    print(f"  rounds per kind {stats.rounds}, lanes per kind {stats.lanes} "
+          f"(S={sizes.S}; grammar: {sizes.grammar} distinct packets a "
+          f"shape, DSE/FIL and deviant batches: {sizes.special} lanes of "
+          f"each), 0 divergences from the native codec and the oracle")
+    print(f"  frames decode_frames_ex sent to the oracle per kind "
+          f"{stats.fallback}; lanes the scalar oracle checked "
+          f"{stats.oracle_lanes}")
+    print(f"  corpus building {stats.build_s} s of the campaign's {run_s} s")
+
+
 def profile(fn, name: str):
     """With --profile DIR: a torch.profiler table of one call of fn,
     written to DIR/name."""
@@ -2128,6 +2263,11 @@ def main() -> int:
     cut_times(codec, codec51, torch.from_numpy(pcm).to("cuda"), w4, w51)
     print(f"  phase 12 took {time.perf_counter() - t12} s")
     del pcm, pcm51, w4, w51
+
+    # phase 13: the differential campaign
+    print(f"phase 13: differential campaign (tools/torch_fuzz_soak.py), "
+          f"B={B} lanes of S={S}, on {kind} ({card})", flush=True)
+    fuzz_campaign(counts, seen, rows, card)
     for key, (lib_ms, scatter_ms, merge_ms) in merges.items():
         print(f"merge library call on {key}: torch scatter_ {lib_ms} ms, "
               f"merge_scatter alone {scatter_ms} ms, whole merge {merge_ms} "

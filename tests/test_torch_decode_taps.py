@@ -8,9 +8,15 @@ Lanes are channel 0 of legal packets with forced predictor orders
 so chanbits is per lane: 16-bit SCE (16), 16-bit CPE (17), 20-bit SCE
 (20) and 20-bit CPE (21).  Orders span 0..30 and 31, modes 0 and 15,
 and some lanes are partial frames.  At 16 taps the lanes above 16 must
-flag err.  Also: the jax-free packet builder in chip_smoke.py writes the
-same bytes as build_packet.
+flag err.  Also: the jax-free packet writer (tools/torch_fuzz_soak.py ::
+build_packets, which chip_smoke.py calls) writes the same bytes as
+build_packet, at the default knobs and over the whole grammar: random
+orders 0..31, mode nibbles, denshifts, pb factors, mixbits and mixres,
+partial frames, deviant bytesShifted and a DSE/FIL prefix.
 """
+
+import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -26,6 +32,9 @@ from test_high_order_decode import build_packet
 from test_torch_port import channel0_lanes
 
 import chip_smoke
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "tools"))
+import torch_fuzz_soak as soak  # noqa: E402
 
 S = 128
 CB_MAX = 21
@@ -98,3 +107,80 @@ def test_chip_smoke_builder_matches_build_packet(depth, nch, orders, modes,
                   depth)[:, :num]
     assert (chip_smoke.forced_order_packet(cfg, pcm, orders, modes)
             == build_packet(cfg, pcm, orders, modes))
+
+
+def _dse_fil_wrapped(body: bytes) -> bytes:
+    """tests/test_grammar_fuzz.py's DSE/FIL construction: a FIL and a
+    DSE element, then the body's bits."""
+    from alacjax.bitbuffer import BitBuffer
+    from alacjax.types import ElementTag
+    bits = BitBuffer(byte_size=len(body) + 64)
+    bits.write(int(ElementTag.FIL), 3)
+    bits.write(3, 4)
+    bits.write(0xABCDEF, 24)
+    bits.write(int(ElementTag.DSE), 3)
+    bits.write(0, 4)
+    bits.write(1, 1)
+    bits.write(2, 8)
+    bits.byte_align(add_zeros=True)
+    bits.write(0xBEEF, 16)
+    rd = BitBuffer(body)
+    total = len(body) * 8
+    while rd.get_position() < total:
+        take = min(32, total - rd.get_position())
+        bits.write(rd.read(take), take)
+    return bits.to_bytes()
+
+
+@pytest.mark.parametrize("depth,nch", [(16, 1), (16, 2), (16, 3), (16, 6),
+                                       (20, 2), (24, 2), (32, 2), (24, 1)])
+def test_build_packets_matches_build_packet_over_the_grammar(depth, nch):
+    """Twelve packets a shape, every knob random (rand_params at orders
+    up to 31), one in three partial, the depth's bytesShifted or a
+    deviant one, all built in one build_packets call, then with a
+    DSE/FIL prefix: byte for byte build_packet's."""
+    from alacjax.oracle.encoder import bytes_shifted_for_depth
+    cfg = AlacConfig(bit_depth=depth, num_channels=nch, frame_length=S)
+    rng = np.random.default_rng(700 + 10 * depth + nch)
+    bs0 = bytes_shifted_for_depth(depth)
+    pcms, params = [], []
+    for i in range(12):
+        num = S if i % 3 else int(rng.integers(1, S))
+        pcms.append(gen_pcm(rng, ["sine", "noise", "silence", "impulse"][
+            i % 4], nch, S, depth)[:, :num])
+        orders, modes, dens, pbfs, mixbits, mixres = soak.rand_params(
+            rng, nch, 30)
+        bs = bs0 if i % 4 else (bs0 + 1) % 3 if depth < 32 else 1
+        params.append(soak.Params(orders, modes, dens, pbfs, mixbits, mixres,
+                                  bs))
+    got = soak.build_packets(cfg, pcms, params)
+    for pcm, p, g in zip(pcms, params, got):
+        want = build_packet(cfg, pcm, p.orders, p.modes, mixres=p.mixres,
+                            denshifts=p.denshifts, pbfs=p.pbfs,
+                            mixbits=p.mixbits, bytes_shifted=p.bytes_shifted)
+        assert g == want, p
+        assert soak.build_packet(
+            cfg, pcm, p.orders, p.modes, p.mixres, p.denshifts, p.pbfs,
+            p.mixbits, p.bytes_shifted, dse_fil=True) == _dse_fil_wrapped(
+                want), p
+
+
+def test_build_packets_over_a_pool_matches_build_packet():
+    """build_packets mapped over spawned host workers (``host_pool``, the
+    card's route) returns build_packet's bytes, in order."""
+    cfg = AlacConfig(bit_depth=16, num_channels=2, frame_length=S)
+    rng = np.random.default_rng(77)
+    pcms, params = [], []
+    for i in range(9):
+        pcms.append(gen_pcm(rng, ["sine", "noise", "impulse"][i % 3], 2, S,
+                            16))
+        params.append(soak.Params(*soak.rand_params(rng, 2, 30),
+                                  dse_fil=i == 4))
+    with soak.host_pool(2) as pool:
+        got = soak.build_packets(cfg, pcms, params, pool)
+    assert got == soak.build_packets(cfg, pcms, params)
+    for pcm, p, g in zip(pcms, params, got):
+        if not p.dse_fil:
+            assert g == build_packet(cfg, pcm, p.orders, p.modes,
+                                     mixres=p.mixres, denshifts=p.denshifts,
+                                     pbfs=p.pbfs, mixbits=p.mixbits), p

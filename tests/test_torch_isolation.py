@@ -1,7 +1,9 @@
 """The port stands apart from the JAX package: no module of
-alacjax_torch (nor chip_smoke.py) imports jax or any alacjax module, and
-the port's own copies of alacjax's host modules (types, oracle, native
-codec) behave as their originals do.
+alacjax_torch (nor chip_smoke.py, nor the port's tools/torch_*.py)
+imports jax or any alacjax module, and the port's own copies of
+alacjax's host modules (types, bitbuffer, oracle, native codec) behave
+as their originals do.  The package exports every public name of
+alacjax's from those copies, and importing it builds nothing.
 
 The copies are held to the originals on numpy inputs from a seed:
 AlacConfig, the constants and ElementTag field for field; the scalar
@@ -19,9 +21,12 @@ import sys
 import numpy as np
 import pytest
 
+import alacjax
 import alacjax.types as jtypes
+import alacjax_torch
 from alacjax import native as jnative
 from alacjax import oracle as joracle
+from alacjax.bitbuffer import BitBuffer as JBitBuffer
 from alacjax_torch import native as tnative
 from alacjax_torch import oracle as toracle
 from alacjax_torch import types as ttypes
@@ -29,7 +34,8 @@ from conftest import gen_pcm
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "alacjax_torch"
-SOURCES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+TOOLS = sorted((REPO / "tools").glob("torch_*.py"))
+SOURCES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"] + TOOLS
 
 
 def _foreign(name: str) -> bool:
@@ -54,14 +60,16 @@ def test_source_imports_nothing_of_alacjax_or_jax(path):
 
 
 def test_every_module_imports_with_alacjax_and_jax_blocked():
-    """Each module of the package, and chip_smoke.py, imports in a
-    process where importing alacjax or jax fails."""
+    """Each module of the package, chip_smoke.py and the port's tools
+    import in a process where importing alacjax or jax fails."""
     mods = sorted(".".join(p.relative_to(REPO).with_suffix("").parts)
                   .removesuffix(".__init__") for p in PKG.rglob("*.py"))
     code = ("import importlib, sys\n"
             "for m in ('alacjax', 'jax', 'jaxlib'):\n"
             "    sys.modules[m] = None\n"
-            f"for m in {mods!r} + ['chip_smoke']:\n"
+            "sys.path.insert(0, 'tools')\n"
+            f"for m in {mods!r} + ['chip_smoke'] + "
+            f"{[p.stem for p in TOOLS]!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if sys.modules[m] is not None and\n"
             "       m.split('.')[0] in ('alacjax', 'jax', 'jaxlib')]\n"
@@ -72,9 +80,96 @@ def test_every_module_imports_with_alacjax_and_jax_blocked():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_package_exports_every_public_name_of_alacjax():
+    """alacjax's __all__ is a subset of the port's, each name the port's
+    own object (defined in alacjax_torch), beside the port's own
+    names."""
+    assert set(alacjax.__all__) <= set(alacjax_torch.__all__)
+    for name in alacjax_torch.__all__:
+        obj = getattr(alacjax_torch, name)
+        if name == "__version__":
+            assert obj == alacjax.__version__
+            continue
+        assert obj.__module__.startswith("alacjax_torch."), (name, obj)
+    for name in ("TorchCodec", "get_codec", "ShardedCodec", "encode_streams",
+                 "encode_stream_device"):
+        assert name in alacjax_torch.__all__
+    assert alacjax_torch.BitBuffer is alacjax_torch.bitbuffer.BitBuffer
+    assert (alacjax_torch.parse_cookie(alacjax_torch.serialize_cookie(
+        alacjax_torch.AlacConfig(num_channels=6)))
+        == alacjax_torch.AlacConfig(num_channels=6))
+
+
+def test_package_import_builds_nothing():
+    """Importing the package (the oracle included) loads neither the
+    native codec nor the CUDA kernels' library."""
+    code = ("import sys\n"
+            "import alacjax_torch\n"
+            "from alacjax_torch import ALACEncoder, ALACDecoder\n"
+            "from alacjax_torch.kernels import _build\n"
+            "assert 'alacjax_torch.native' not in sys.modules\n"
+            "assert _build._lib is None and _build._path is None\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 # ---------------------------------------------------------------------------
 # the copies against their originals
 # ---------------------------------------------------------------------------
+def _bitbuffer_ops(seed):
+    """A seeded byte buffer and a seeded sequence of cursor operations
+    over it (reads, small reads, single bits, peeks, rewinds, advances,
+    resets), every read inside the buffer."""
+    rng = np.random.default_rng(seed)
+    data = rng.integers(0, 256, int(rng.integers(8, 64)),
+                        dtype=np.uint8).tobytes()
+    total, pos, ops = len(data) * 8, 0, []
+    for _ in range(200):
+        kind = ["read", "read_small", "read_one", "peek", "rewind",
+                "advance", "reset"][int(rng.integers(0, 7))]
+        if kind == "reset":
+            ops.append((kind, ()))
+            pos = 0
+            continue
+        if kind == "rewind":
+            n = int(rng.integers(0, pos + 1))
+            ops.append((kind, (n,)))
+            pos -= n
+            continue
+        n = 1 if kind == "read_one" else int(rng.integers(
+            0, (16 if kind == "read_small" else 32) + 1))
+        if pos + n > total:
+            continue
+        ops.append((kind, () if kind == "read_one" else (n,)))
+        pos += 0 if kind == "peek" else n
+    return data, ops
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_bitbuffer_copy_equals_alacjax_bitbuffer(seed):
+    """rewind, reset, read_small, read_one and peek (beside read and
+    advance): on the same bytes, every call returns what alacjax's
+    BitBuffer returns and leaves the same bitpos."""
+    data, ops = _bitbuffer_ops(seed)
+    mine, theirs = alacjax_torch.BitBuffer(data), JBitBuffer(data)
+    used = set()
+    for kind, args in ops:
+        assert (getattr(mine, kind)(*args)
+                == getattr(theirs, kind)(*args)), (kind, args)
+        assert mine.bitpos == theirs.bitpos, (kind, args)
+        used.add(kind)
+    assert {"rewind", "reset", "read_small", "read_one", "peek"} <= used
+    for kind in ("read_small", "peek"):
+        for bb in (mine, theirs):
+            bb.set_position(len(data) * 8 - 3)
+        with pytest.raises(ttypes.AlacParamError):
+            getattr(mine, kind)(4)
+        with pytest.raises(jtypes.AlacParamError):
+            getattr(theirs, kind)(4)
+        assert mine.bitpos == theirs.bitpos == len(data) * 8 - 3
+
+
 def test_types_equal_alacjax_field_for_field():
     names = [n for n in vars(ttypes) if not n.startswith("_")
              and n not in ("annotations", "dataclasses", "enum")]
