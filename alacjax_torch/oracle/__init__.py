@@ -15,13 +15,13 @@ round-trip is the correctness gate.
 
 from .matrix import mix, unmix, shift_off, shift_in
 from .dp import init_coefs, pc_block, unpc_block
-from .ag import AGParams, dyn_comp, dyn_decomp
+from .ag import AGParams, dyn_comp, dyn_decomp, set_standard_ag_params
 from .encoder import ALACEncoder
 from .decoder import ALACDecoder
 
 __all__ = [
     "mix", "unmix", "shift_off", "shift_in",
     "init_coefs", "pc_block", "unpc_block",
-    "AGParams", "dyn_comp", "dyn_decomp",
+    "AGParams", "dyn_comp", "dyn_decomp", "set_standard_ag_params",
     "ALACEncoder", "ALACDecoder",
 ]

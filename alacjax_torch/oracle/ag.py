@@ -22,9 +22,9 @@ import numpy as np
 
 from ..bitbuffer import BitBuffer
 from ..types import (
-    BITOFF, MAX_DATATYPE_BITS_16, MAX_PREFIX_16, MAX_PREFIX_32,
-    MAX_RICE_NUMBITS, MDENSHIFT, MMULSHIFT, MOFF, N_MAX_MEAN_CLAMP,
-    N_MEAN_CLAMP_VAL, PBSHIFT, QB, QBSHIFT,
+    BITOFF, KB0, MAX_DATATYPE_BITS_16, MAX_PREFIX_16, MAX_PREFIX_32,
+    MAX_RICE_NUMBITS, MAX_RUN_DEFAULT, MB0, MDENSHIFT, MMULSHIFT, MOFF,
+    N_MAX_MEAN_CLAMP, N_MEAN_CLAMP_VAL, PB0, PBSHIFT, QB, QBSHIFT,
     AlacParamError, lead, lg3a,
 )
 
@@ -49,6 +49,11 @@ def set_ag_params(m: int, p: int, k: int, f: int, s: int, maxrun: int) -> AGPara
     """aglib.h :: set_ag_params."""
     return AGParams(mb=m, mb0=m, pb=p, kb=k, wb=(1 << k) - 1, qb=QB - p,
                     fw=f, sw=s, maxrun=maxrun)
+
+
+def set_standard_ag_params(fullwidth: int, sectorwidth: int) -> AGParams:
+    """aglib.h :: set_standard_ag_params."""
+    return set_ag_params(MB0, PB0, KB0, fullwidth, sectorwidth, MAX_RUN_DEFAULT)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,9 @@
 """Types, constants and error classes of the torch port: a copy of
 alacjax/types.py (the vocabulary of the reference header
 ``codec/ALACAudioTypes.h``, ``aglib.h`` and ``dplib.h``), kept here so
-the port imports nothing of the JAX package.  Names and values equal
-alacjax's (tests/test_torch_isolation.py holds them field for field);
-what no module of the port uses is left out.
+the port imports nothing of the JAX package.  Every public name of
+alacjax's is here with its value (tests/test_torch_isolation.py holds
+them field for field, both ways).
 """
 
 from __future__ import annotations
@@ -16,14 +16,20 @@ import enum
 # ---------------------------------------------------------------------------
 kALACMaxChannels = 8
 kALACMaxEscapeHeaderBytes = 8
+kALACMaxSearches = 16
 kALACMaxCoefs = 16
+kALACDefaultFramesPerPacket = 4096
+kALACMaxSampleSize = 32
 kALACDefaultFrameSize = 4096
 
 # ---------------------------------------------------------------------------
 # Error codes (reference: codec/ALACAudioTypes.h)
 # ---------------------------------------------------------------------------
+kALAC_noErr = 0
 kALAC_UnimplementedError = -4
+kALAC_FileNotFoundError = -43
 kALAC_ParamError = -50
+kALAC_MemFullError = -108
 
 
 class AlacError(Exception):
@@ -57,6 +63,15 @@ class ElementTag(enum.IntEnum):
     FIL = 6   # fill element (skipped)
     END = 7   # end of frame
 
+
+ID_SCE = int(ElementTag.SCE)
+ID_CPE = int(ElementTag.CPE)
+ID_CCE = int(ElementTag.CCE)
+ID_LFE = int(ElementTag.LFE)
+ID_DSE = int(ElementTag.DSE)
+ID_PCE = int(ElementTag.PCE)
+ID_FIL = int(ElementTag.FIL)
+ID_END = int(ElementTag.END)
 
 # ---------------------------------------------------------------------------
 # Channel layout tags (reference: codec/ALACAudioTypes.h channel layout enum;
@@ -126,6 +141,7 @@ MAX_RICE_NUMBITS = 25        # non-escape Rice codeword cap (ag_enc.c :: dyn_cod
 # Predictor tuning constants (reference: codec/dplib.h)
 # ---------------------------------------------------------------------------
 DENSHIFT_DEFAULT = 9
+DENSHIFT_MAX = 15
 AINIT = 38
 BINIT = -29
 CINIT = -2

@@ -42,7 +42,7 @@ Phases, each of which exits nonzero on failure:
      call's walker warps' clock64 cycles per step, with those times S
      over the SM clock (the per-lane chain);
   4. the main path: TorchCodec encode_frames -> decode_frames_ex on the
-     bench corpus (bench.py :: make_music, B=4096 frames of 16-bit
+     bench corpus (bench_torch.py :: make_music, B=4096 frames of 16-bit
      stereo, S=4096): lossless, no frame flagged, the first 256 packets
      byte-identical to the native C++ encoder, every kernel launched;
      encode/decode seconds and frames/s, then the device-resident steady
@@ -128,15 +128,27 @@ Phases, each of which exits nonzero on failure:
      is compared on its first PREFIX samples and FUZZ_LANES lanes with
      its plain version, run on the host in worker processes.  Prints
      rounds and lanes per kind, frames sent to the oracle, corpus
-     building seconds and the phase's seconds.
-Each path (phases 4-13) runs with the launch counts set to 0 just before
+     building seconds and the phase's seconds;
+ 14. (a) the merge invariant on the widest layout: B=4096 16-bit 7.1
+     frames of S=4096 (tests/test_chunk_budget.py's four rows tiled
+     over the lanes, seeded) encoded with the merge wrapper recorded;
+     per merge call, every lane's keys other than empty are 0..n-1 in
+     slot order with n <= num_words, checked on the card; the first
+     N_MERGE_NATIVE packets equal the native C++ encoder's, and every
+     lane decodes losslessly; (b) the bench family once:
+     bench_torch.measure (B=4096, BENCH_ITERS pairs, BENCH_REPEATS
+     repeats) and bench_configs_torch's five configs (B=CONFIGS_B,
+     CONFIGS_ITERS), each gated on losslessness, their JSON lines
+     printed.
+Each path (phases 4-14) runs with the launch counts set to 0 just before
 it and read just after; a kernel of the path that was not launched
 fails the run.  The line before the last is a JSON object of per-kernel
 results ("launches" sums the paths' counts; "ms", "plain_ms" and
 "bound_ms" sum a kernel's compared calls, on the inputs compared;
-"library_ms" is null, no single PyTorch call computing any of these
-scans, nor merge's scatter plus tail OR); the last line is the JSON
-result line.  ``--profile DIR`` also writes torch.profiler tables
+"library_ms" is merge's: torch's scatter_ computing its compaction half
+on the same inputs, summed over phase 3's merge signatures; null for
+the scans, which no single PyTorch call computes); the last line is
+the JSON result line.  ``--profile DIR`` also writes torch.profiler tables
 of one device-resident encode + decode of phase 4 (DIR/profile.txt), one
 phase-5 decode (DIR/profile_51.txt), the three phase-6 rungs
 (DIR/profile_ladder.txt), one phase-7 5.1 encode (DIR/profile_enc51.txt),
@@ -176,6 +188,13 @@ FUZZ_SIZES = dict(grammar=32, grammar_oracle=2, content_oracle=2,
                   exhaustive_oracle=1, special=2)
 FUZZ_SEED = 0            # the round seed (grammar 10M + it, content 20M + ...)
 FUZZ_LANES = 256         # lanes of a new phase-13 signature's compare
+# phase 14: the merge invariant on 7.1, then the bench family once
+MERGE_SEED = 25          # the seed of the 7.1 rows' noise
+N_MERGE_NATIVE = 64      # 7.1 packets held to the native C++ encoder
+BENCH_ITERS = 6          # bench_torch.py's chained pairs per repeat ...
+BENCH_REPEATS = 5        # ... and its repeats, its defaults
+CONFIGS_B = 512          # bench_configs_torch.py's frames per config ...
+CONFIGS_ITERS = 2        # ... and its iterations (5 by default)
 REPLACES = {
     "cost": "alacjax/ops/pallas/cost_pallas.py:346",
     "emit": "alacjax/ops/pallas/emit_pallas.py:257",
@@ -221,6 +240,8 @@ PATH_KERNELS = {         # the kernels each path must launch
     "phase 12": ("decode", "decode_cursor"),
     "phase 12 raw": ("decode_raw",),
     "phase 13": ("cost", "emit", "merge", "decode", "decode_hi"),
+    "phase 14": ("cost", "emit", "merge", "decode"),
+    "phase 14 bench": ("cost", "emit", "merge", "decode"),
 }
 HBM_BYTES_PER_S = 3.35e12    # one H100 SXM's device memory rate
 # Lane operations one Hopper SM issues per clock: four schedulers, each
@@ -960,7 +981,7 @@ def main_path(pcm, cfg, codec, counts):
 
 
 def make_51(cfg):
-    """Phase 5's corpus: six channels of bench.py make_music signal (three
+    """Phase 5's corpus: six channels of bench_torch.py make_music signal (three
     stereo renderings with different noise seeds) scaled to 24 bits with
     a random low byte, every 64th frame partial.  N_DISTINCT_51 frames
     are natively encoded and tiled to B.  Returns (pcm (B, 6, S) int32
@@ -982,10 +1003,10 @@ def make_51(cfg):
 
 def music_51(n: int):
     """(n, 6, S) int32 frames of 24-bit 5.1: three stereo renderings of
-    bench.py make_music (noise seeds 7, 8, 9) up 8 bits with a random low
+    bench_torch.py make_music (noise seeds 7, 8, 9) up 8 bits with a random low
     byte."""
     import numpy as np
-    from bench import make_music
+    from bench_torch import make_music
     hi = np.concatenate([make_music(n, S, seed=s) for s in (7, 8, 9)], axis=1)
     rng = np.random.default_rng(24)
     return (hi.astype(np.int32) << 8) | rng.integers(0, 256, hi.shape,
@@ -1043,7 +1064,7 @@ def make_hi(cfg):
     channels and modes 0 and 15, tiled to B.  Returns (pcm (B, 2, S),
     packets)."""
     import numpy as np
-    from bench import make_music
+    from bench_torch import make_music
     n = N_DISTINCT_HI
     x = make_music(n, S, seed=30)
     soak = fuzz_tool()
@@ -1120,7 +1141,7 @@ def encode_layouts(codec51, pcm, packets51, nums, x, n, counts):
     import torch
     from alacjax_torch import native
     from alacjax_torch import AlacConfig, TorchCodec
-    from bench import make_music
+    from bench_torch import make_music
 
     torch.cuda.reset_peak_memory_stats()
     with path_run("phase 7", counts):
@@ -1431,7 +1452,7 @@ def write_album(d: str):
     import numpy as np
     from alacjax_torch.containers.pcm import pack_pcm
     from alacjax_torch.containers.wav import WavFile, write_wav
-    from bench import make_music
+    from bench_torch import make_music
     paths, pcms = [], []
     n = TRACK_SECONDS * 44100
     with ThreadPoolExecutor(os.cpu_count()) as pool:   # numpy frees the GIL
@@ -1597,10 +1618,10 @@ def converter(counts, card: str, kind: str, device: str = "cuda"):
 
 
 def stream_corpus(n_streams: int, n_packets: int, seed: int = 11):
-    """(n_streams, n_packets, 2, S) int32: bench.py make_music cut into
+    """(n_streams, n_packets, 2, S) int32: bench_torch.py make_music cut into
     consecutive frames, stream b holding frames b * n_packets onwards of
     one continuous signal."""
-    from bench import make_music
+    from bench_torch import make_music
     return make_music(n_streams * n_packets, S, seed=seed).reshape(
         n_streams, n_packets, 2, S)
 
@@ -2064,6 +2085,90 @@ def report(stats, sizes, run_s: float):
     print(f"  corpus building {stats.build_s} s of the campaign's {run_s} s")
 
 
+def merge_invariant(counts, kind: str, card: str, repo: str):
+    """Phase 14 (a): 16-bit 7.1 (five elements) at B lanes of S, lane i
+    of tests/test_chunk_budget.py's row i % 4 (sine, all escape,
+    alternating, tiny residuals; seeded), encoded with the merge
+    wrapper recorded.  Per merge call the invariant is checked on the
+    card (each lane's keys other than empty are 0..n-1 in slot order,
+    n <= num_words): the (B, T) keys stay there.  Then the first
+    N_MERGE_NATIVE packets against the native C++ encoder and the decode
+    of every lane, lossless."""
+    import numpy as np
+    import torch
+    from alacjax_torch import AlacConfig, TorchCodec, native
+    from alacjax_torch.ops import bitpack
+    sys.path.insert(0, os.path.join(repo, "tests"))
+    from torch_stress_cases import merge_key_faults, widest_layout_pcm
+
+    t0 = time.perf_counter()
+    cfg = AlacConfig(bit_depth=16, num_channels=8, frame_length=S)
+    pcm = widest_layout_pcm(np.random.default_rng(MERGE_SEED), B, S,
+                            np.int32)
+    x = torch.from_numpy(pcm).to("cuda")
+    codec = TorchCodec(cfg, chunk=B, device="cuda")
+
+    def keep(call):
+        if call[0] != "merge":
+            return None
+        keys, num_words = call[3][1], call[3][4]
+        return (merge_key_faults(keys, num_words).sum(),
+                (keys != -1).sum(dim=1).max(), tuple(keys.shape), num_words)
+    with path_run("phase 14", counts), recording([], keep) as merges:
+        words, bits = codec._encode(x)
+        dec, err, num = codec._decode(words)
+    if not merges:
+        fail("phase 14: the merge kernel was never called")
+    for bad, most, shape, num_words in merges:
+        print(f"  merge on {shape[0]}x{shape[1]} -> {num_words} words: "
+              f"{int(bad)} lanes break the invariant, at most {int(most)} "
+              "keys a lane")
+        if int(bad) or int(most) > num_words:
+            fail(f"phase 14: {int(bad)} lanes' merge keys are not 0..n-1 "
+                 f"or hold more than {num_words} words")
+    if bool(err.any().item()) or not torch.equal(dec, x) \
+            or not bool((num == S).all().item()):
+        fail("phase 14: the 7.1 round trip is not lossless")
+    packets = bitpack.words_to_bytes(words[:N_MERGE_NATIVE].cpu().numpy(),
+                                     bits[:N_MERGE_NATIVE].cpu().numpy())
+    enc = native.NativeEncoder(cfg, independent_frames=True)
+    bad = [i for i in range(N_MERGE_NATIVE)
+           if packets[i] != enc.encode_packet(pcm[i])]
+    if bad:
+        fail(f"phase 14: {len(bad)} of the first {N_MERGE_NATIVE} 7.1 packets "
+             f"differ from the native C++ encoder (first: frame {bad[0]})")
+    print(f"  7.1: {len(merges)} merge calls hold the invariant on every "
+          f"lane, {N_MERGE_NATIVE}/{N_MERGE_NATIVE} packets byte-identical to "
+          f"the native C++ encoder, {B} lanes lossless, on {kind} ({card}); "
+          f"{time.perf_counter() - t0} s")
+
+
+def bench_family(counts, kind: str, card: str):
+    """Phase 14 (b): bench_torch.measure (bench.py's metric: R repeats
+    of chained encode -> decode pairs, median and spread) and
+    bench_configs_torch's five configs, each gated on losslessness;
+    their JSON lines printed as they are."""
+    import bench_configs_torch
+    import bench_torch
+    from alacjax_torch import AlacConfig
+
+    t0 = time.perf_counter()
+    cfg = AlacConfig(bit_depth=16, num_channels=2, frame_length=S,
+                     sample_rate=44100)
+    with path_run("phase 14 bench", counts):
+        line = bench_torch.measure(cfg, B, BENCH_ITERS, BENCH_REPEATS,
+                                   device="cuda")
+        configs = [bench_configs_torch.run_config(name, kw, k, CONFIGS_B,
+                                                  CONFIGS_ITERS, "cuda")
+                   for name, kw, k in bench_configs_torch.CONFIGS]
+    print(f"  bench_torch.py (B={B}, iters {BENCH_ITERS}, repeats "
+          f"{BENCH_REPEATS}) and bench_configs_torch.py (B={CONFIGS_B}, "
+          f"iters {CONFIGS_ITERS}) on {kind} ({card}), "
+          f"{time.perf_counter() - t0} s:")
+    for obj in [line] + configs:
+        print(json.dumps(obj), flush=True)
+
+
 def profile(fn, name: str):
     """With --profile DIR: a torch.profiler table of one call of fn,
     written to DIR/name."""
@@ -2104,7 +2209,7 @@ def main() -> int:
     from alacjax_torch import native
     from alacjax_torch import AlacConfig, TorchCodec
     from alacjax_torch.kernels import LAUNCHES, _build
-    from bench import make_music
+    from bench_torch import make_music
 
     # phase 2: build
     _build.lib()
@@ -2268,6 +2373,15 @@ def main() -> int:
     print(f"phase 13: differential campaign (tools/torch_fuzz_soak.py), "
           f"B={B} lanes of S={S}, on {kind} ({card})", flush=True)
     fuzz_campaign(counts, seen, rows, card)
+
+    # phase 14: the merge invariant on the widest layout, the bench family
+    print(f"phase 14: merge invariant on B={B} 16-bit 7.1 frames of {S}, "
+          f"then bench_torch.py and bench_configs_torch.py, on {kind} "
+          f"({card})", flush=True)
+    t14 = time.perf_counter()
+    merge_invariant(counts, kind, card, repo)
+    bench_family(counts, kind, card)
+    print(f"  phase 14 took {time.perf_counter() - t14} s")
     for key, (lib_ms, scatter_ms, merge_ms) in merges.items():
         print(f"merge library call on {key}: torch scatter_ {lib_ms} ms, "
               f"merge_scatter alone {scatter_ms} ms, whole merge {merge_ms} "
@@ -2286,7 +2400,8 @@ def main() -> int:
                      plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                      bound_by=("bytes" if row["bytes_ms"] >= row["ops_ms"]
                                else "operations"),
-                     library_ms=None)
+                     library_ms=(sum(m[0] for m in merges.values())
+                                 if name == "merge" else None))
         kernels.append(entry)
     print(f"total wall time {time.perf_counter() - t_start} s")
     print(json.dumps({"kernels": kernels}))

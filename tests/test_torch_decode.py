@@ -22,6 +22,7 @@ from alacjax.oracle import ag as oag
 from alacjax.oracle import dp as odp
 from alacjax.types import KB0, MB0, PB0
 from alacjax_torch.ops import fused_decode as tfd
+from alacjax_torch.oracle import ag as tag
 
 WB = (1 << KB0) - 1
 CB = 17
@@ -53,7 +54,7 @@ def streams(rng, orders, S, mode_nz):
         if mode_nz:
             s1 = odp.pc_block(s1, odp.init_coefs(9), 31, CB, 9)
         bb = BitBuffer(byte_size=16 * S)
-        oag.dyn_comp(oag.set_standard_ag_params(S, S), bb, s1, S, CB)
+        oag.dyn_comp(tag.set_standard_ag_params(S, S), bb, s1, S, CB)
         packets.append(bb.to_bytes())
         xs.append(x)
     W = max(len(p) for p in packets) // 4 + 3

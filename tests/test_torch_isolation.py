@@ -1,9 +1,10 @@
 """The port stands apart from the JAX package: no module of
-alacjax_torch (nor chip_smoke.py, nor the port's tools/torch_*.py)
-imports jax or any alacjax module, and the port's own copies of
-alacjax's host modules (types, bitbuffer, oracle, native codec) behave
-as their originals do.  The package exports every public name of
-alacjax's from those copies, and importing it builds nothing.
+alacjax_torch (nor chip_smoke.py, the port's tools/torch_*.py or its
+bench*_torch.py scripts) imports jax or any alacjax module, and the
+port's own copies of alacjax's host modules (types, bitbuffer, oracle,
+native codec) behave as their originals do and lack none of their
+public names.  The package exports every public name of alacjax's from
+those copies, and importing it builds nothing.
 
 The copies are held to the originals on numpy inputs from a seed:
 AlacConfig, the constants and ElementTag field for field; the scalar
@@ -12,8 +13,12 @@ frames; the native C++ codec's packets and samples (the port's copy
 builds with g++ into build/alacjax_torch/native/ under a file lock).
 """
 
+import __future__
 import ast
 import dataclasses
+import enum
+import importlib
+import inspect
 import pathlib
 import subprocess
 import sys
@@ -35,7 +40,10 @@ from conftest import gen_pcm
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "alacjax_torch"
 TOOLS = sorted((REPO / "tools").glob("torch_*.py"))
-SOURCES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"] + TOOLS
+BENCHES = [REPO / f"bench{b}_torch.py"
+           for b in ("", "_configs", "_compression")]
+SOURCES = (sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"] + TOOLS
+           + BENCHES)
 
 
 def _foreign(name: str) -> bool:
@@ -60,8 +68,9 @@ def test_source_imports_nothing_of_alacjax_or_jax(path):
 
 
 def test_every_module_imports_with_alacjax_and_jax_blocked():
-    """Each module of the package, chip_smoke.py and the port's tools
-    import in a process where importing alacjax or jax fails."""
+    """Each module of the package, chip_smoke.py, the port's tools and
+    its bench scripts import in a process where importing alacjax or jax
+    fails."""
     mods = sorted(".".join(p.relative_to(REPO).with_suffix("").parts)
                   .removesuffix(".__init__") for p in PKG.rglob("*.py"))
     code = ("import importlib, sys\n"
@@ -69,7 +78,7 @@ def test_every_module_imports_with_alacjax_and_jax_blocked():
             "    sys.modules[m] = None\n"
             "sys.path.insert(0, 'tools')\n"
             f"for m in {mods!r} + ['chip_smoke'] + "
-            f"{[p.stem for p in TOOLS]!r}:\n"
+            f"{[p.stem for p in TOOLS + BENCHES]!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if sys.modules[m] is not None and\n"
             "       m.split('.')[0] in ('alacjax', 'jax', 'jaxlib')]\n"
@@ -201,6 +210,48 @@ def test_types_equal_alacjax_field_for_field():
         assert ttypes.lead(v) == jtypes.lead(v)
         assert ttypes.lg3a(v) == jtypes.lg3a(v)
         assert ttypes.sign_extend(v, 16) == jtypes.sign_extend(v, 16)
+
+
+def _public(mod) -> dict:
+    """A module's public names (its ``__all__`` where it has one), less
+    the modules and the ``__future__`` feature it imports."""
+    names = getattr(mod, "__all__", None) or [
+        n for n in vars(mod) if not n.startswith("_")]
+    feature = type(__future__.annotations)
+    return {n: getattr(mod, n) for n in names
+            if not inspect.ismodule(getattr(mod, n))
+            and not isinstance(getattr(mod, n), feature)}
+
+
+@pytest.mark.parametrize("mod", ["types", "oracle", "oracle.ag"])
+def test_port_lacks_no_public_name_of_alacjax(mod):
+    """The other way round from the field-for-field checks: every public
+    name of alacjax's module (``__all__`` for the oracle package) is in
+    the port's copy, a constant with an equal value, an enum or
+    dataclass with equal members or fields, anything else by name.
+    None of these three modules holds jax or TPU machinery, so none is
+    excused."""
+    orig = importlib.import_module(f"alacjax.{mod}")
+    mine = importlib.import_module(f"alacjax_torch.{mod}")
+    theirs = _public(orig)
+    missing = sorted(n for n in theirs if not hasattr(mine, n))
+    assert not missing, missing
+    if hasattr(orig, "__all__"):
+        assert set(orig.__all__) <= set(mine.__all__)
+    for name, want in theirs.items():
+        got = getattr(mine, name)
+        if isinstance(want, enum.EnumMeta):
+            assert [(t.name, t.value) for t in got] == [
+                (t.name, t.value) for t in want], name
+        elif dataclasses.is_dataclass(want):
+            assert ([f.name for f in dataclasses.fields(got)]
+                    == [f.name for f in dataclasses.fields(want)]), name
+        elif not callable(want):
+            assert got == want, name
+    if mod != "types":
+        for fw, sw in ((4096, 4096), (256, 256), (1000, 7)):
+            assert (dataclasses.asdict(mine.set_standard_ag_params(fw, sw))
+                    == dataclasses.asdict(orig.set_standard_ag_params(fw, sw)))
 
 
 # (depth, channels, samples per frame, frames, partial sample counts)

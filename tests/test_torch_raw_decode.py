@@ -17,6 +17,7 @@ from alacjax.ops import bitpack as jbitpack
 from alacjax.ops import rice as jrice
 from alacjax.types import KB0, MB0, PB0
 from alacjax_torch.ops import rice as trice
+from alacjax_torch.oracle import ag as tag
 
 WB = (1 << KB0) - 1
 S = 300
@@ -41,7 +42,7 @@ def _coded(x, bit_sizes):
     packed, bits = [], []
     for row, bs in zip(x, bit_sizes):
         bb = BitBuffer(byte_size=64)
-        bits.append(oag.dyn_comp(oag.set_standard_ag_params(S, S), bb, row,
+        bits.append(oag.dyn_comp(tag.set_standard_ag_params(S, S), bb, row,
                                  S, int(bs)))
         packed.append(bb.to_bytes())
     W = max(len(p) for p in packed) // 4 + 3
