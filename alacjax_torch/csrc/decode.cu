@@ -38,28 +38,56 @@
 // the walk overlap.  Each thread keeps its lane's state in registers: the
 // Rice warp the cursor and the adaptive mean, the FIR warp the TAPS+1
 // lags and the TAPS coefficients, walked by fully unrolled predicate
-// chains (every array index is a compile-time constant).  On the TPU a
-// lane's bits arrive through a row-prefetched sliding cache with a drift
-// budget; here the Rice thread reads its row's words directly (two __ldg
-// per cut, indices clamped to the image: past W-1 reads word W-1, below 0
-// word 0), which a warp's rows mostly find in L1.  The FIR warp fills a
-// 32-lane x 32-sample shared tile (pitch 33: no bank conflicts either
-// way) and stores it to (L, S) row by row, 128 coalesced bytes per store.
-// PERF.md §6 records the steps measured on the way, among them a bit
-// reservoir in registers that was slower than the direct reads.
-// chanbits is per lane (a stacked batch may mix SCE and CPE channels of
-// several depths); the sign extensions at that width go through sext_sh,
-// so a width of 33 gives 0 as alacjax does.  End bits and the error flag
-// (zero-run overrun, or an order the walk does not cover) come out per
-// lane.
+// chains (every array index is a compile-time constant).  The FIR warp
+// fills a 32-lane x 32-sample shared tile (pitch 33: no bank conflicts
+// either way) and stores it to (L, S) row by row, 128 coalesced bytes per
+// store.
 //
-// The cursor and raw instances are one warp per block of 32 lanes, the
-// Rice warp alone: the cursor walks each lane's codewords and writes its
-// end bit (a `skip` lane does not move: its end is its start) and err
-// (the zero-run overrun; it walks no FIR, so no order to flag); the raw
-// decode also stages its residuals in a 32 x 32 shared tile and stores
-// them to (L, S) row by row, as the FIR warp does.  Their bound is the
-// Rice chain alone (the codeword lengths' serial dependence).
+// The Rice decoder (Bits, RiceDec) is one for all five instances, and
+// keeps device memory off its chain.  Each lane stages its row's words in
+// a ring of RING words in shared memory, [slot][lane] at a pitch of 32
+// words, so lane i always reads bank i whatever its cursor: no bank
+// conflict for any mix of positions.  The ring holds NPART parts of PART
+// words ahead of the cursor; when the cursor enters the next part, the
+// lane refills the part it left with cp.async 4-byte copies of its own
+// row (rows need not be 16-byte aligned) and waits only for the part
+// after the cursor's, issued NPART - 2 parts earlier.  A lane reads only
+// what it copied itself, so no barrier is needed.  The copies clamp as a
+// direct read did: past W-1 word W-1, below 0 word 0; a cursor that jumps
+// past the staged parts (a hostile zero-run length) restages the ring
+// there.  A step reads one window, the 96 bits at the cursor from four
+// staged words: the value codeword (at most 32 bits unless it escapes),
+// the escape payload and the zero-run codeword after either (9 + 33 + 32
+// bits at most) all lie in it, so a step makes one round of shared loads
+// and no device load.  The value codeword's arms are selects; the
+// zero-run codeword, whose length would otherwise lie on every step's
+// chain, is decoded only in a step where some lane of the warp triggers a
+// run (a vote), so the warp steps together (the cursor runs every lane to
+// the warp's longest count).  The step is still a chain of some 30
+// dependent operations, not of loads (PERF.md §6: about 430 cycles a
+// codeword, 570 with two device loads a cut).  chanbits is per lane (a
+// stacked batch may mix SCE and CPE channels of several depths); the sign
+// extensions at that width go through sext_sh, so a width of 33 gives 0
+// as alacjax does.  End bits and the error flag (zero-run overrun, or an
+// order the walk does not cover) come out per lane.  PERF.md §6 records
+// the steps measured on the way: a register reservoir refilled from
+// device memory (slower than direct reads), then the one window, the
+// ring, a warp-wide refill (slower than each lane's own: dropped), the
+// vote and the raw decode's store warp.
+//
+// The cursor instance is one warp per block of 32 lanes, the Rice warp
+// alone: it walks each lane's codewords and writes its end bit (a `skip`
+// lane does not move: its end is its start) and err (the zero-run
+// overrun; it walks no FIR, so no order to flag).  The raw decode pairs
+// the Rice warp with a store warp, as the full decode pairs it with the
+// FIR warp: the Rice warp writes tile p's signed residuals to a shared
+// [lane][sample] tile while the store warp writes tile p - 1 to (L, S)
+// row by row, so the stores are off the chain.  Their bound is the Rice
+// chain alone (the codeword lengths' serial dependence).
+//
+// `cycles` (or nullptr) receives each Rice warp's clock64 cycles inside
+// its decode loop (and, for the full decode, each FIR warp's inside its
+// walk, a second row): PERF.md §6 reads them as cycles per codeword.
 #include "common.cuh"
 
 namespace alac {
@@ -81,52 +109,128 @@ struct DecodeArgs {
     int* samples;                   // (L, S): samples, or residuals (raw)
     int* end_bits;                  // (L,)
     int* err;                       // (L,)
+    long long* cycles;              // per block clock64 counts, or nullptr
     int L, rows, W, S;
     unsigned mb0;
     int kb;
     unsigned wb;
 };
 
+// x << n with PTX's shift, which gives 0 for n >= 32
+__device__ __forceinline__ unsigned shl_clamp(unsigned x, unsigned n) {
+    unsigned r;
+    asm("shl.b32 %0, %1, %2;" : "=r"(r) : "r"(x), "r"(n));
+    return r;
+}
+
 // leading-ones prefix length of the window and the k bits after its
 // terminating zero
 __device__ __forceinline__ void codeword(unsigned stream, int k, int& pre,
                                          unsigned& v) {
     pre = clz32(~stream);
-    const unsigned body = pre + 1 >= 32 ? 0u : (stream << (pre + 1));
+    const unsigned body = shl_clamp(stream, (unsigned)pre + 1u);
     v = body >> ((32 - k) & 31);
 }
 
-// A lane's bit cursor over its row: each cut reads the two words under
-// the cursor directly, by clamped indices.
+constexpr int RING = 64;               // staged words per lane
+constexpr int PART = 16;               // words per refill
+constexpr int PART_BITS = 5 + 4;       // log2 of a part's bits
+constexpr int NPART = RING / PART;
+
+// One warp's staged words: lane i's word j in w[j % RING][i].
+struct RiceRing {
+    unsigned w[RING][LANES];
+};
+
+// a cp.async of one word that the compiler keeps in order with the
+// ring's loads
+__device__ __forceinline__ void stage4(unsigned* dst, const unsigned* src) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void stage_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+constexpr unsigned FULL = 0xFFFFFFFFu;   // every lane of a warp
+
+// A lane's bit cursor over its staged words.  Part j is the row's words
+// j*PART .. j*PART + PART - 1 (indices clamped to the row); the ring holds
+// parts part .. part + NPART - 1, of which part and part + 1 have landed
+// whenever the cursor's word lies in part `part`.
 struct Bits {
     const unsigned* row;
-    int W, bitpos;
+    unsigned* col;                  // the lane's column of the ring
+    int W, bitpos, part;
 
-    __device__ __forceinline__ void init(const unsigned* r, int w,
-                                         int start) {
+    __device__ __forceinline__ void copy_part(int j) {
+#pragma unroll
+        for (int i = 0; i < PART; ++i) {
+            const int w = j * PART + i;
+            const int idx = w < 0 ? 0 : (w > W - 1 ? W - 1 : w);
+            stage4(col + (w & (RING - 1)) * LANES, row + idx);
+        }
+    }
+
+    // every part from p on, once no older copy is in flight
+    __device__ __forceinline__ void restage(int p) {
+        stage_wait<0>();
+#pragma unroll 1
+        for (int j = 0; j < NPART; ++j) copy_part(p + j);
+        cp_async_commit();
+        stage_wait<0>();
+        part = p;
+    }
+
+    __device__ __forceinline__ void init(const unsigned* r, unsigned* c,
+                                         int w, int start) {
         row = r;
+        col = c;
         W = w;
         bitpos = start;
+        restage(start >> PART_BITS);
     }
 
-    __device__ __forceinline__ unsigned peek32() const {
+    // after a step: entering the next part refills the one left with the
+    // part NPART ahead and waits for the part after the cursor's
+    __device__ __forceinline__ void advance() {
+        const int p = bitpos >> PART_BITS;
+        if (p == part) return;
+        if (p == part + 1) {
+            copy_part(part + NPART);
+            cp_async_commit();
+            stage_wait<NPART - 2>();
+            part = p;
+        } else {
+            restage(p);
+        }
+    }
+
+    // no copy may land once the lane is done
+    __device__ __forceinline__ void drain() { stage_wait<0>(); }
+
+    // the 96 bits at the cursor, most significant first
+    __device__ __forceinline__ void window(unsigned& hi, unsigned& mid,
+                                          unsigned& lo) const {
         const int w = bitpos >> 5, sh = bitpos & 31;
-        const int i0 = w < 0 ? 0 : (w > W - 1 ? W - 1 : w);
-        const unsigned a = __ldg(row + i0);
-        if (sh == 0) return a;
-        const int i1 = w + 1 < 0 ? 0 : (w + 1 > W - 1 ? W - 1 : w + 1);
-        return (a << sh) | (__ldg(row + i1) >> (32 - sh));
+        const unsigned a0 = col[(w & (RING - 1)) * LANES];
+        const unsigned a1 = col[((w + 1) & (RING - 1)) * LANES];
+        const unsigned a2 = col[((w + 2) & (RING - 1)) * LANES];
+        const unsigned a3 = col[((w + 3) & (RING - 1)) * LANES];
+        hi = __funnelshift_l(a1, a0, sh);
+        mid = __funnelshift_l(a2, a1, sh);
+        lo = __funnelshift_l(a3, a2, sh);
     }
-
-    __device__ __forceinline__ unsigned peek(int nb) const {
-        return peek32() >> ((32 - nb) & 31) & (nb >= 32 ? ~0u : (1u << nb) - 1u);
-    }
-
-    __device__ __forceinline__ void skip(int k) { bitpos += k; }
 };
 
 // The adaptive-Rice side of a substep (_rice_substep): one residual per
-// call, 0 inside a zero run or past the lane's sample count.
+// call, 0 inside a zero run or past the lane's sample count.  The value
+// codeword, its escape payload and the zero-run codeword come from one
+// window.  next() is warp-wide: the zero-run codeword is decoded in the
+// steps where the mean of some lane of the warp triggers a run.
 struct RiceDec {
     Bits bits;
     unsigned mb, zmode, run_rem, pb, wb;
@@ -134,9 +238,9 @@ struct RiceDec {
     bool err;
 
     __device__ __forceinline__ void init(const DecodeArgs& a, int lane,
-                                         int n) {
-        bits.init(a.words + (size_t)(lane % a.rows) * a.W, a.W,
-                  a.start_bits[lane]);
+                                         int n, RiceRing& ring) {
+        bits.init(a.words + (size_t)(lane % a.rows) * a.W,
+                  &ring.w[0][threadIdx.x & 31], a.W, a.start_bits[lane]);
         mb = a.mb0;
         zmode = 0u;
         run_rem = 0u;
@@ -151,66 +255,78 @@ struct RiceDec {
 
     __device__ __forceinline__ int next() {
         const bool active = c < n_eff;
-        int res = 0;
-        if (active && run_rem == 0u) {
-            int k = 31 - clz32((mb >> QBSHIFT) + 3u);
-            if (k > kb) k = kb;
-            const unsigned m = (1u << k) - 1u;
-            int pre;
-            unsigned v;
-            codeword(bits.peek32(), k, pre, v);
-            unsigned n;
-            if (pre >= MAX_PREFIX_32) {
-                bits.skip(MAX_PREFIX_32);
-                    n = bits.peek(cb);
-                bits.skip(cb);
-            } else {
-                const bool use_v = k != 1;
-                const bool vge2 = v >= 2u;
-                n = (unsigned)pre * m + (use_v && vge2 ? v - 1u : 0u);
-                bits.skip(pre + 1 + (use_v ? (vge2 ? k : k - 1) : 0));
-            }
-            const unsigned ndecode = n + zmode;
-            const int half = (int)(ndecode >> 1);
-            res = (ndecode & 1u) ? wneg(wadd(half, 1)) : half;
+        const bool decode = active && run_rem == 0u;
+        unsigned hi, mid, lo;
+        bits.window(hi, mid, lo);
 
-            unsigned mb_upd = pb * ndecode + mb - ((pb * mb) >> PBSHIFT);
-            if (n > N_MAX_MEAN_CLAMP) mb_upd = N_MEAN_CLAMP_VAL;
-            const bool trigger =
-                ((mb_upd << MMULSHIFT) < QB) && (c + 1 < n_eff);
-            unsigned nz_safe = 0u;
-            bool overrun = false;
-            if (trigger) {
-                const int kz = clz32(mb_upd) - 24 + (int)((mb_upd + 16u) >> 6);
-                const int kzc = kz < 0 ? 0 : (kz > 31 ? 31 : kz);
-                const unsigned mz = ((1u << kzc) - 1u) & wb;
-                    int pre2;
-                unsigned v2;
-                codeword(bits.peek32(), kzc, pre2, v2);
-                unsigned nz;
-                if (pre2 >= MAX_PREFIX_16) {
-                    bits.skip(MAX_PREFIX_16);
-                    nz = bits.peek(16);
-                    bits.skip(16);
-                } else {
-                    const bool v2ge2 = v2 >= 2u;
-                    nz = (unsigned)pre2 * (mz == 0u ? 1u : mz)
-                         + (kz != 1 && v2ge2 ? v2 - 1u : 0u);
-                    bits.skip(pre2 + 1
-                              + (kz != 1 ? (v2ge2 ? kz : kz - 1) : 0));
-                }
-                overrun = (unsigned)(c + 1) + nz > (unsigned)n_eff;
-                err = err || overrun;
-                nz_safe = overrun ? 0u : nz;
-            }
-            run_rem = trigger ? nz_safe : 0u;
-            zmode = (trigger && nz_safe < 65535u && !overrun) ? 1u : 0u;
-            mb = trigger ? 0u : mb_upd;
-        } else if (active) {
-            run_rem -= 1u;
+        int k = 31 - clz32((mb >> QBSHIFT) + 3u);
+        if (k > kb) k = kb;
+        const unsigned m = (1u << k) - 1u;
+        int pre;
+        unsigned v;
+        codeword(hi, k, pre, v);
+        const bool esc = pre >= MAX_PREFIX_32;
+        const unsigned payload = __funnelshift_l(mid, hi, MAX_PREFIX_32);
+        const unsigned n_esc = (payload >> ((32 - cb) & 31))
+                               & (cb >= 32 ? ~0u : (1u << cb) - 1u);
+        const bool use_v = k != 1;
+        const bool vge2 = v >= 2u;
+        const unsigned n = esc ? n_esc
+                               : (unsigned)pre * m
+                                     + (use_v && vge2 ? v - 1u : 0u);
+        const int len = esc ? MAX_PREFIX_32 + cb
+                            : pre + 1 + (use_v ? (vge2 ? k : k - 1) : 0);
+        const unsigned ndecode = n + zmode;
+        const int half = (int)(ndecode >> 1);
+        const int res = (ndecode & 1u) ? wneg(wadd(half, 1)) : half;
+
+        unsigned mb_upd = pb * ndecode + mb - ((pb * mb) >> PBSHIFT);
+        if (n > N_MAX_MEAN_CLAMP) mb_upd = N_MEAN_CLAMP_VAL;
+        const bool trigger =
+            decode && ((mb_upd << MMULSHIFT) < QB) && (c + 1 < n_eff);
+
+        // the zero-run codeword at `len` bits into the window (len <= 42),
+        // decoded only in a step where some lane of the warp triggers one
+        int adv = decode ? len : 0;
+        unsigned rr = decode ? 0u : (active ? run_rem - 1u : run_rem);
+        unsigned zm = decode ? 0u : zmode;
+        unsigned mbn = decode ? mb_upd : mb;
+        if (__any_sync(FULL, trigger)) {
+            const int kz = clz32(mb_upd) - 24 + (int)((mb_upd + 16u) >> 6);
+            const int kzc = kz < 0 ? 0 : (kz > 31 ? 31 : kz);
+            const unsigned mz = ((1u << kzc) - 1u) & wb;
+            const bool far = len >= 32;
+            const unsigned run = __funnelshift_l(far ? lo : mid,
+                                                 far ? mid : hi, len);
+            int pre2;
+            unsigned v2;
+            codeword(run, kzc, pre2, v2);
+            const bool esc2 = pre2 >= MAX_PREFIX_16;
+            const bool v2ge2 = v2 >= 2u;
+            const unsigned nz = esc2 ? (run << MAX_PREFIX_16) >> 16
+                                     : (unsigned)pre2 * (mz == 0u ? 1u : mz)
+                                           + (kz != 1 && v2ge2 ? v2 - 1u
+                                                               : 0u);
+            const int len2 = esc2 ? MAX_PREFIX_16 + 16
+                                  : pre2 + 1
+                                        + (kz != 1 ? (v2ge2 ? kz : kz - 1)
+                                                   : 0);
+            const bool overrun =
+                trigger && (unsigned)(c + 1) + nz > (unsigned)n_eff;
+            err = err || overrun;
+            const unsigned nz_safe = overrun ? 0u : nz;
+            rr = trigger ? nz_safe : rr;
+            zm = (trigger && nz_safe < 65535u && !overrun) ? 1u : zm;
+            mbn = trigger ? 0u : mbn;
+            adv = trigger ? adv + len2 : adv;
         }
-        if (active) ++c;
-        return res;
+        run_rem = rr;
+        zmode = zm;
+        mb = mbn;
+        bits.bitpos = wadd(bits.bitpos, adv);
+        c += active ? 1 : 0;
+        bits.advance();
+        return decode ? res : 0;
     }
 };
 
@@ -319,6 +435,7 @@ template <int TAPS>
 __global__ void decode_kernel(const DecodeArgs a) {
     __shared__ int ring[2][TILE][PITCH];
     __shared__ int otile[TILE][PITCH];
+    __shared__ RiceRing staged;
     const int warp = threadIdx.x >> 5, lid = threadIdx.x & 31;
     const int lane0 = blockIdx.x * 32, lane = lane0 + lid;
     const bool live = lane < a.L;
@@ -332,14 +449,20 @@ __global__ void decode_kernel(const DecodeArgs a) {
     if (warp == 0) {
         // tile p's residuals in phase p
         RiceDec r;
-        r.init(a, ln, n_eff);
+        r.init(a, ln, n_eff, staged);
+        long long cyc = 0;
         for (int p = 0; p <= n_tiles; ++p) {
             if (p < n_tiles) {
+                const long long c0 = clock64();
                 const int t0 = p * TILE, cnt = min(TILE, S - t0);
+#pragma unroll 2
                 for (int j = 0; j < cnt; ++j) ring[p & 1][j][lid] = r.next();
+                cyc += clock64() - c0;
             }
             phase_barrier(64);
         }
+        r.bits.drain();
+        if (a.cycles && lid == 0) a.cycles[blockIdx.x] = cyc;
         if (live) {
             a.end_bits[lane] = r.bits.bitpos;
             a.err[lane] = (r.err || bad_order) ? 1 : 0;
@@ -348,55 +471,88 @@ __global__ void decode_kernel(const DecodeArgs a) {
         // tile p - 1's samples in phase p
         Fir<TAPS> f;
         f.init(a, ln, n_eff);
+        long long cyc = 0;
         for (int p = 0; p <= n_tiles; ++p) {
             if (p > 0) {
+                const long long c0 = clock64();
                 const int t0 = (p - 1) * TILE, cnt = min(TILE, S - t0);
                 for (int j = 0; j < cnt; ++j)
                     otile[lid][j] = f.step(ring[(p - 1) & 1][j][lid]);
+                cyc += clock64() - c0;
                 __syncwarp();
                 store_rows(otile, a, lane0, t0, cnt, lid);
                 __syncwarp();
             }
             phase_barrier(64);
         }
+        if (a.cycles && lid == 0) a.cycles[gridDim.x + blockIdx.x] = cyc;
     }
 }
 
 // The Rice warp alone, one per block: each lane's end bit and err.
 __global__ void cursor_kernel(const DecodeArgs a) {
+    __shared__ RiceRing staged;
     const int lane = blockIdx.x * 32 + threadIdx.x;
-    if (lane >= a.L) return;
-    const int n_eff = (a.skip && a.skip[lane]) ? 0
-                      : (a.num ? a.num[lane] : a.S);
+    const bool live = lane < a.L;
+    const int ln = live ? lane : 0;         // a dead lane reads lane 0 ...
+    const int n_eff = (!live || (a.skip && a.skip[ln])) ? 0    // ... never
+                      : (a.num ? a.num[ln] : a.S);
     RiceDec r;
-    r.init(a, lane, n_eff);
-    const int steps = min(n_eff, a.S);     // past it every substep idles
+    r.init(a, ln, n_eff, staged);
+    // the warp steps together; past a lane's count its substeps idle
+    const int steps = __reduce_max_sync(FULL, (unsigned)min(n_eff, a.S));
+    const long long c0 = clock64();
     for (int t = 0; t < steps; ++t) r.next();
-    a.end_bits[lane] = r.bits.bitpos;
-    a.err[lane] = r.err ? 1 : 0;
+    const long long cyc = clock64() - c0;
+    r.bits.drain();
+    if (a.cycles && threadIdx.x == 0) a.cycles[blockIdx.x] = cyc;
+    if (live) {
+        a.end_bits[lane] = r.bits.bitpos;
+        a.err[lane] = r.err ? 1 : 0;
+    }
 }
 
-// The Rice warp alone, one per block: each lane's signed residuals to
-// (L, S) through a shared tile, and its end bit and err.
+// The Rice warp and a store warp per block: warp 0 decodes tile p's
+// signed residuals into a shared [lane][sample] tile in phase p, warp 1
+// stores tile p - 1 to (L, S); then each lane's end bit and err.
 __global__ void raw_kernel(const DecodeArgs a) {
-    __shared__ int otile[TILE][PITCH];
-    const int lid = threadIdx.x;
+    __shared__ int tiles[2][TILE][PITCH];
+    __shared__ RiceRing staged;
+    const int warp = threadIdx.x >> 5, lid = threadIdx.x & 31;
     const int lane0 = blockIdx.x * 32, lane = lane0 + lid;
     const bool live = lane < a.L;
     const int ln = live ? lane : 0;
     const int n_eff = !live ? 0 : (a.num ? a.num[ln] : a.S);
-    RiceDec r;
-    r.init(a, ln, n_eff);
-    for (int t0 = 0; t0 < a.S; t0 += TILE) {
-        const int cnt = min(TILE, a.S - t0);
-        for (int j = 0; j < cnt; ++j) otile[lid][j] = r.next();
-        __syncwarp();
-        store_rows(otile, a, lane0, t0, cnt, lid);
-        __syncwarp();
-    }
-    if (live) {
-        a.end_bits[lane] = r.bits.bitpos;
-        a.err[lane] = r.err ? 1 : 0;
+    const int n_tiles = (a.S + TILE - 1) / TILE;
+    if (warp == 0) {
+        RiceDec r;
+        r.init(a, ln, n_eff, staged);
+        long long cyc = 0;
+        for (int p = 0; p <= n_tiles; ++p) {
+            if (p < n_tiles) {
+                const long long c0 = clock64();
+                const int cnt = min(TILE, a.S - p * TILE);
+#pragma unroll 2
+                for (int j = 0; j < cnt; ++j) tiles[p & 1][lid][j] = r.next();
+                cyc += clock64() - c0;
+            }
+            phase_barrier(64);
+        }
+        r.bits.drain();
+        if (a.cycles && lid == 0) a.cycles[blockIdx.x] = cyc;
+        if (live) {
+            a.end_bits[lane] = r.bits.bitpos;
+            a.err[lane] = r.err ? 1 : 0;
+        }
+    } else {
+        for (int p = 0; p <= n_tiles; ++p) {
+            if (p > 0) {
+                const int t0 = (p - 1) * TILE;
+                store_rows(tiles[(p - 1) & 1], a, lane0, t0,
+                           min(TILE, a.S - t0), lid);
+            }
+            phase_barrier(64);
+        }
     }
 }
 
@@ -426,7 +582,8 @@ extern "C" int alac_decode(const int* words, const int* start_bits,
                            const int* coefs0, int coef_n, const int* mode,
                            const int* numactive, const int* denshift,
                            const int* num, int* samples, int* end_bits,
-                           int* err, int L, int rows, int W, int S, int taps,
+                           int* err, long long* cycles, int L, int rows,
+                           int W, int S, int taps,
                            int chanbits_max, unsigned mb0, int kb,
                            unsigned wb, void* stream) {
     if (L <= 0 || S <= 0) return (int)cudaGetLastError();
@@ -434,8 +591,8 @@ extern "C" int alac_decode(const int* words, const int* start_bits,
     if (const int bad = alac::check(L, rows, W, chanbits_max)) return bad;
     const alac::DecodeArgs a{(const unsigned*)words, start_bits, chanbits,
                              pb, coefs0, coef_n, mode, numactive, denshift,
-                             num, nullptr, samples, end_bits, err, L, rows,
-                             W, S, mb0, kb, wb};
+                             num, nullptr, samples, end_bits, err, cycles,
+                             L, rows, W, S, mb0, kb, wb};
     const cudaStream_t st = (cudaStream_t)stream;
     switch (taps) {
         case 8: return alac::launch<8>(a, st);
@@ -450,16 +607,17 @@ extern "C" int alac_decode(const int* words, const int* start_bits,
 extern "C" int alac_decode_cursor(const int* words, const int* start_bits,
                                   const int* chanbits, const int* pb,
                                   const int* skip, const int* num,
-                                  int* end_bits, int* err, int L, int rows,
-                                  int W, int S, int chanbits_max,
+                                  int* end_bits, int* err, long long* cycles,
+                                  int L, int rows, int W, int S,
+                                  int chanbits_max,
                                   unsigned mb0, int kb, unsigned wb,
                                   void* stream) {
     if (L <= 0 || S <= 0) return (int)cudaGetLastError();
     if (const int bad = alac::check(L, rows, W, chanbits_max)) return bad;
     const alac::DecodeArgs a{(const unsigned*)words, start_bits, chanbits,
                              pb, nullptr, 0, nullptr, nullptr, nullptr,
-                             num, skip, nullptr, end_bits, err, L, rows, W,
-                             S, mb0, kb, wb};
+                             num, skip, nullptr, end_bits, err, cycles, L,
+                             rows, W, S, mb0, kb, wb};
     alac::cursor_kernel<<<(L + 31) / 32, 32, 0, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }
@@ -469,15 +627,16 @@ extern "C" int alac_decode_cursor(const int* words, const int* start_bits,
 extern "C" int alac_decode_raw(const int* words, const int* start_bits,
                                const int* chanbits, const int* pb,
                                const int* num, int* res, int* end_bits,
-                               int* err, int L, int rows, int W, int S,
+                               int* err, long long* cycles, int L, int rows,
+                               int W, int S,
                                int chanbits_max, unsigned mb0, int kb,
                                unsigned wb, void* stream) {
     if (L <= 0 || S <= 0) return (int)cudaGetLastError();
     if (const int bad = alac::check(L, rows, W, chanbits_max)) return bad;
     const alac::DecodeArgs a{(const unsigned*)words, start_bits, chanbits,
                              pb, nullptr, 0, nullptr, nullptr, nullptr,
-                             num, nullptr, res, end_bits, err, L, rows, W,
-                             S, mb0, kb, wb};
-    alac::raw_kernel<<<(L + 31) / 32, 32, 0, (cudaStream_t)stream>>>(a);
+                             num, nullptr, res, end_bits, err, cycles, L,
+                             rows, W, S, mb0, kb, wb};
+    alac::raw_kernel<<<(L + 31) / 32, 64, 0, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }

@@ -39,9 +39,9 @@ SIGNATURES = {
     "alac_predict": [_P] * 6 + [_I] * 7 + [_P],
     "alac_rice_cost": [_P] * 4 + [_I] * 3 + [_U, _U, _I, _U, _P],
     "alac_merge": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "alac_decode": [_P] * 5 + [_I] + [_P] * 7 + [_I] * 6 + [_U, _I, _U, _P],
-    "alac_decode_cursor": [_P] * 8 + [_I] * 5 + [_U, _I, _U, _P],
-    "alac_decode_raw": [_P] * 8 + [_I] * 5 + [_U, _I, _U, _P],
+    "alac_decode": [_P] * 5 + [_I] + [_P] * 8 + [_I] * 6 + [_U, _I, _U, _P],
+    "alac_decode_cursor": [_P] * 9 + [_I] * 5 + [_U, _I, _U, _P],
+    "alac_decode_raw": [_P] * 9 + [_I] * 5 + [_U, _I, _U, _P],
 }
 
 _lock = threading.Lock()

@@ -67,7 +67,8 @@ def _ptr(t):
 def decode_channel(words, start_bits, num_samples: int, chanbits,
                    mb0: int, pb, kb: int, wb: int, coefs0, mode, numactive,
                    denshift, num=None, taps: int = fused_decode.TAPS,
-                   chanbits_max: int | None = None, raw: bool = False):
+                   chanbits_max: int | None = None, raw: bool = False,
+                   cycles=None):
     """(rows, W) int32 word image -> (samples (L, S) int32, end_bits (L,)
     int32, err (L,) bool): one channel (L = rows) or n stacked channels
     (L = n rows, lane l on row l % rows) through the ``taps``-wide walk
@@ -76,7 +77,11 @@ def decode_channel(words, start_bits, num_samples: int, chanbits,
     are at most ``chanbits_max`` (at most 33).  ``raw=True`` launches the
     raw instance: the signed residuals, ``chanbits`` the escape width,
     the predictor arguments not read (None will do), err the zero-run
-    overrun alone."""
+    overrun alone.  ``cycles`` (CUDA only, int64) receives the Rice
+    warps' clock64 cycles inside their decode loops, one per block of 32
+    lanes: shape (ceil(L / 32),) for the raw instance, (2, ceil(L / 32))
+    for the full decode, whose second row holds the FIR warps' cycles
+    inside their walks."""
     lane = (start_bits, pb, coefs0, mode, numactive, denshift, num)
     if isinstance(chanbits, torch.Tensor):
         lane = lane + (chanbits,)
@@ -99,11 +104,16 @@ def decode_channel(words, start_bits, num_samples: int, chanbits,
     end = torch.empty((L,), dtype=torch.int32, device=dev)
     err = torch.empty((L,), dtype=torch.int32, device=dev)
     W = words.shape[1]
+    if cycles is not None:
+        blocks = -(-L // 32)
+        expect(cycles, "cycles", (blocks,) if raw else (2, blocks),
+               torch.int64)
     if raw:
         launch("alac_decode_raw", words,
                words.data_ptr(), start_bits.data_ptr(), cb_lane.data_ptr(),
                pb.data_ptr(), _ptr(num), samples.data_ptr(), end.data_ptr(),
-               err.data_ptr(), L, rows, W, S, chanbits_max, mb0, kb, wb)
+               err.data_ptr(), _ptr(cycles), L, rows, W, S, chanbits_max,
+               mb0, kb, wb)
     else:
         expect(coefs0, "coefs0", (L, coefs0.shape[1]))
         launch("alac_decode", words,
@@ -111,14 +121,14 @@ def decode_channel(words, start_bits, num_samples: int, chanbits,
                pb.data_ptr(), coefs0.data_ptr(), coefs0.shape[1],
                mode.data_ptr(), numactive.data_ptr(), denshift.data_ptr(),
                _ptr(num), samples.data_ptr(), end.data_ptr(), err.data_ptr(),
-               L, rows, W, S, taps, chanbits_max, mb0, kb, wb)
+               _ptr(cycles), L, rows, W, S, taps, chanbits_max, mb0, kb, wb)
     LAUNCHES[counter(taps, raw)] += 1
     return samples, end, err != 0
 
 
 def cursor_scan(words, start_bits, num_samples: int, chanbits, mb0: int, pb,
                 kb: int, wb: int, chanbits_max: int | None = None,
-                skip=None, num=None):
+                skip=None, num=None, cycles=None):
     """The cursor instance: (rows, W) int32 word image -> (end_bits (L,)
     int32, err (L,) bool) of each lane's Rice stream over
     ``num_samples`` (or ``num``) samples, with no samples out; lane l
@@ -126,7 +136,9 @@ def cursor_scan(words, start_bits, num_samples: int, chanbits, mb0: int, pb,
     with err 0.  err is the decode's own zero-run overrun: alacjax's
     cursor_scan also sets it for its TPU bit cache's drift or underrun
     (fused_decode.py:398-399), a structure this port does not have, so
-    the two agree wherever no such drift arises."""
+    the two agree wherever no such drift arises.  ``cycles`` (CUDA only:
+    a (ceil(L / 32),) int64 tensor) receives each Rice warp's clock64
+    cycles inside its loop."""
     lane = (start_bits, pb, skip, num)
     if isinstance(chanbits, torch.Tensor):
         lane = lane + (chanbits,)
@@ -143,12 +155,14 @@ def cursor_scan(words, start_bits, num_samples: int, chanbits, mb0: int, pb,
             raise ValueError(f"skip: expected shape {(L,)}, got "
                              f"{tuple(skip.shape)}")
         skip_i = skip.to(torch.int32).contiguous()
+    if cycles is not None:
+        expect(cycles, "cycles", (-(-L // 32),), torch.int64)
     end = torch.empty((L,), dtype=torch.int32, device=dev)
     err = torch.empty((L,), dtype=torch.int32, device=dev)
     launch("alac_decode_cursor", words,
            words.data_ptr(), start_bits.data_ptr(), cb_lane.data_ptr(),
            pb.data_ptr(), _ptr(skip_i), _ptr(num), end.data_ptr(),
-           err.data_ptr(), L, rows, words.shape[1], num_samples,
+           err.data_ptr(), _ptr(cycles), L, rows, words.shape[1], num_samples,
            chanbits_max, mb0, kb, wb)
     LAUNCHES["decode_cursor"] += 1
     return end, err != 0

@@ -33,14 +33,19 @@ Phases, each of which exits nonzero on failure:
      tile-edge inputs through both of those kernels (every order, per-
      lane chanbits 16..33 and num, L 33 and 67, S 1..100); the cost
      kernel and every decode instance at per-lane chanbits 16..33 on
-     synthetic inputs (tests/torch_decode_cases.py); and per merge
+     synthetic inputs (tests/torch_decode_cases.py); every decode
+     instance on that file's window_lanes (WINDOW_CASES: the edges of the
+     Rice decoder's staged window, with the usual starting mean and with
+     MB0_JUMP); and per merge
      signature torch's scatter_ (merge's compaction half) beside the
      merge kernel's scatter alone and the whole merge; the results
      must be exactly equal; each call's bound is printed beside (see
      ``work``: bytes at 3.35 TB/s or the operations the function needs
-     at the SMs' issue rate, whichever is longer), and each predictor
-     call's walker warps' clock64 cycles per step, with those times S
-     over the SM clock (the per-lane chain);
+     at the SMs' issue rate, whichever is longer), each predictor
+     call's walker warps' clock64 cycles per step, and each decode
+     call's Rice warps' clock64 cycles per codeword (the FIR warps' per
+     step beside, for a full decode), with those times S over the SM
+     clock (the per-lane chain);
   4. the main path: TorchCodec encode_frames -> decode_frames_ex on the
      bench corpus (bench_torch.py :: make_music, B=4096 frames of 16-bit
      stereo, S=4096): lossless, no frame flagged, the first 256 packets
@@ -105,8 +110,8 @@ Phases, each of which exits nonzero on failure:
      and num equal to the chained decode's, lossless, exactly one
      cursor launch per channel but the last and one stacked decode
      launch; the cursor's ms per channel beside the chained decode's
-     8-tap launch per channel, the stacked launch's ms and the whole
-     stacked and chained decodes in turns; rice_decode of the stereo
+     8-tap launch per channel, in turns, the stacked launch's ms and the
+     whole stacked and chained decodes in turns; rice_decode of the stereo
      frames' first channel (the raw instance), ending where the cursor
      ends; then the encode of phase 4's batch and the decodes of phases
      4 and 5 up to each profiling cut (``stop_at``), ms per batch;
@@ -188,6 +193,12 @@ FUZZ_SIZES = dict(grammar=32, grammar_oracle=2, content_oracle=2,
                   exhaustive_oracle=1, special=2)
 FUZZ_SEED = 0            # the round seed (grammar 10M + it, content 20M + ...)
 FUZZ_LANES = 256         # lanes of a new phase-13 signature's compare
+# phase 3: tests/torch_decode_cases.py :: window_lanes cases, (row width
+# mod 4, lanes, samples, word rows or None for one per lane); the plain
+# versions' loops set the samples (the cuda tests take S=4096)
+WINDOW_CASES = ((1, 64, 96, None), (2, 64, 96, 8), (3, 96, 77, 16),
+                (0, 40, 64, None), (1, 4096, 256, None),
+                (3, 4096, 256, 1024))
 # phase 14: the merge invariant on 7.1, then the bench family once
 MERGE_SEED = 25          # the seed of the 7.1 rows' noise
 N_MERGE_NATIVE = 64      # 7.1 packets held to the native C++ encoder
@@ -895,6 +906,36 @@ def walker_cycles(calls, clock_hz: float):
             print(f"  walker cycles per step, order {od} on {L}x{S}: mean "
                   f"{per[i].mean().item():.1f}, most {worst:.1f} (x S / "
                   f"clock: {worst * S / clock_hz * 1e3:.4f} ms)", flush=True)
+
+
+def rice_cycles(calls, clock_hz: float):
+    """Phase 3: each decode call (the cursor, the raw decode, the 8-, 16-
+    and 30-tap decode) once more with its Rice warps' clock64 cycles
+    inside their decode loops (csrc/decode.cu), printed as cycles per
+    codeword (a step: one codeword or one sample of a zero run; mean and
+    most over the warps) and the most times S over the SM clock: the
+    Rice chain, in ms; for a full decode the FIR warps' cycles per step
+    beside."""
+    import torch
+    for name, wrapper, _, args, kwargs in calls:
+        if name not in DECODES:
+            continue
+        L, steps = args[1].shape[0], args[2]
+        blocks = -(-L // 32)
+        full = name in ("decode", "decode_hi")
+        cyc = torch.zeros((2, blocks) if full else (blocks,),
+                          dtype=torch.int64, device="cuda")
+        wrapper(*args, **kwargs, cycles=cyc)
+        per = cyc.double().reshape(-1, blocks) / steps
+        worst = per[0].max().item()
+        line = (f"  Rice cycles per codeword, {name} on {L} lanes x {steps}"
+                f" ({describe(name, args, kwargs)}): mean "
+                f"{per[0].mean().item():.1f}, most {worst:.1f} (x S / "
+                f"clock: {worst * steps / clock_hz * 1e3:.4f} ms)")
+        if full:
+            line += (f"; FIR cycles per step: mean {per[1].mean().item():.1f}"
+                     f", most {per[1].max().item():.1f}")
+        print(line, flush=True)
 
 
 @contextlib.contextmanager
@@ -1900,6 +1941,54 @@ def chanbits33_cases(rows, repo: str):
           flush=True)
 
 
+def window_cases(rows, repo: str):
+    """Phase 3: every decode instance (8, 16 and 30 taps, the cursor, the
+    raw decode) on the staged window's edges (tests/torch_decode_cases.py
+    :: window_lanes: start bits at every residue mod 32, near the row's
+    end and the refill boundaries, streams past the row's last word,
+    escapes at chanbits 32 and 33 with a zero-run codeword right behind,
+    row widths 0..3 mod 4, lanes stacked on fewer rows) with the usual
+    starting mean and with MB0_JUMP (zero runs millions of bits long),
+    each exactly equal to its plain version."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.join(repo, "tests"))
+    from torch_decode_cases import MB0_JUMP, RICE, window_lanes
+    from alacjax_torch.kernels import decode as kd
+    n = 0
+    _, kb, wb = RICE
+    for tail, L, Sc, rows_n in WINDOW_CASES:
+        words, lane = window_lanes(np.random.default_rng(1000 * tail + L + Sc),
+                                   L, Sc, rows_n, tail)
+        w = torch.from_numpy(words.view(np.int32)).to("cuda")
+        t = {k: torch.from_numpy(v).to("cuda") for k, v in lane.items()}
+        for mb0 in (RICE[0], MB0_JUMP):
+            head = (w, t["start"], Sc, t["cb"], mb0, t["pb"], kb, wb)
+            what = (f"window L={L} on {rows_n or L} rows, W % 4 = {tail}, "
+                    f"S={Sc}, mb0={mb0}")
+            calls = [("decode_cursor", kd.cursor_scan, kd.plain_cursor, head,
+                      dict(chanbits_max=33, skip=t["skip"], num=t["num"])),
+                     ("decode_raw", kd.decode_channel, kd.plain,
+                      head + (None,) * 4,
+                      dict(num=t["num"], chanbits_max=33, raw=True))]
+            pred = (t["coefs"], t["mode"], t["order"], t["den"])
+            calls += [(kd.counter(taps), kd.decode_channel, kd.plain,
+                       head + pred, dict(num=t["num"], taps=taps,
+                                         chanbits_max=33))
+                      for taps in (8, 16, 30)]
+            for name, wrapper, plain, args, kw in calls:
+                err = max_abs_err(wrapper(*args, **kw), plain(*args, **kw))
+                rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                                err)
+                if err:
+                    fail(f"{name} kernel disagrees with its plain version on "
+                         f"the {what}")
+                n += 1
+    print(f"  staged-window edges: {n} calls of the decode, cursor and raw "
+          f"instances on {len(WINDOW_CASES)} window_lanes cases x 2 "
+          "starting means: max_abs_err 0", flush=True)
+
+
 def raw_drive(codec, words):
     """alacjax_torch.ops.rice.rice_decode of every frame's first channel:
     its Rice start and parameter from decode_frames_device's "params"
@@ -1927,9 +2016,10 @@ def stacked_decode(codec, codec51, w4, w51, pcm4, pcm51, nums51, counts):
     decode_stacked=True)): PCM, err and num equal to the chained decode,
     lossless, one cursor launch per channel but the last and one stacked
     decode launch; the cursor's ms per channel beside the chained
-    decode's 8-tap launch per channel, the stacked launch, and the whole
-    stacked decode beside the chained one, in turns; then rice_decode
-    (the raw instance) of the stereo frames' first channel."""
+    decode's 8-tap launch per channel (in turns), the stacked launch, and
+    the whole stacked decode beside the chained one, in turns; then
+    rice_decode (the raw instance) of the stereo frames' first
+    channel."""
     import numpy as np
     import torch
     from alacjax_torch import TorchCodec, kernels
@@ -1971,13 +2061,20 @@ def stacked_decode(codec, codec51, w4, w51, pcm4, pcm51, nums51, counts):
             st._decode(w)
         with recording([]) as rec_ch:
             c._decode(w)
-        cur_ms = [timed(lambda: f(*a, **k), reps=3)[1]
-                  for n, f, _, a, k in rec_st if n == "decode_cursor"]
+        # the cursor launches and the chained 8-tap launches in turns
+        # (cursor, chained, chained, cursor), each call's two times
+        # averaged
+        group = {"cursor": [c for c in rec_st if c[0] == "decode_cursor"],
+                 "chained": [c for c in rec_ch if c[0] == "decode"]}
+        took = {"cursor": [], "chained": []}
+        for which in ("cursor", "chained", "chained", "cursor"):
+            took[which].append([timed(lambda: f(*a, **k), reps=3)[1]
+                                for _, f, _, a, k in group[which]])
+        cur_ms, ch_ms = ([sum(t) / len(t) for t in zip(*took[which])]
+                         for which in ("cursor", "chained"))
         stk_ms = [timed(lambda: f(*a, **k), reps=3)[1]
                   for n, f, _, a, k in rec_st if n == "decode"]
-        ch_ms = [timed(lambda: f(*a, **k), reps=3)[1]
-                 for n, f, _, a, k in rec_ch if n == "decode"]
-        del rec_st, rec_ch
+        del rec_st, rec_ch, group
         turns = {"chained": [], "stacked": []}
         for which in ("chained", "stacked", "stacked", "chained"):
             fn = c._decode if which == "chained" else st._decode
@@ -2269,6 +2366,7 @@ def main() -> int:
             for k in REPLACES}
     compare_kernels(calls, rows, int_ops)
     merges = merge_library(calls)
+    rice_cycles(calls, clock)
     # the new signatures: per-lane chanbits and num (the 5.1 encode), the
     # standalone-predictor route (stereo and 5.1), a stream step with
     # persistent banks (one block of starting coefficients per order),
@@ -2296,10 +2394,12 @@ def main() -> int:
     compare_kernels(new_calls, rows, int_ops, cut=True)
     merges.update(merge_library(new_calls))
     walker_cycles(new_calls, clock)
+    rice_cycles(new_calls, clock)
     # one emit call that ends mid-tile in lanes and in steps
     compare_kernels([ragged_emit_call()], rows, int_ops)
     predict_tile_edges(rows, repo)
     chanbits33_cases(rows, repo)
+    window_cases(rows, repo)
     del new_calls, legacy, legacy51, stacked, stacked51, run
     missing = [k for k, r in rows.items() if r["calls"] == 0]
     if missing:

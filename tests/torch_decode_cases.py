@@ -1,16 +1,28 @@
 """Synthetic inputs of the decode kernel's instances (csrc/decode.cu: the
 8/16/30-tap decode, the cursor and the raw decode), shared by the CPU
 tests against alacjax (tests/test_torch_chanbits33.py,
-tests/test_torch_raw_decode.py), the card tests of the kernels
-(tests/test_torch_port.py) and chip_smoke.py's phase 3.  No jax here:
-the card's machine lacks it.
+tests/test_torch_raw_decode.py, tests/test_torch_rice_window.py), the
+card tests of the kernels (tests/test_torch_port.py,
+tests/test_torch_rice_window.py) and chip_smoke.py's phase 3.  No jax
+here: the card's machine lacks it.
 
 The words are random bits, so the lanes take every branch of the Rice
 decode (escapes at the lane's width, zero runs, overruns that flag
 err); per-lane chanbits cover 16..33, 33 included (one past a 32-bit
 channel, where every sign extension gives 0); orders cover 0, 1..30 and
 31 with modes 0 and 15; some lanes are partial.  With ``rows`` the L
-lanes stack on fewer word rows (lane l reads row l % rows)."""
+lanes stack on fewer word rows (lane l reads row l % rows).
+
+``window_lanes`` aims at the Rice decoder's staged window (a ring of
+words per lane in shared memory, refilled 16 words at a time, one
+96-bit window a step): start bits at every residue mod 32 over the
+whole row, its last words and just before refill boundaries; streams
+that run past the row's last word (clamped reads); escapes at chanbits
+32 and 33 followed at once by a zero-run codeword, some of them escaped
+too; rows of few and of many ones; any row width.  With
+``MB0_JUMP`` as the mean's start a lane's first zero-run codeword is
+millions of bits long, so its cursor leaves the staged words for the
+row's end."""
 
 import numpy as np
 
@@ -20,6 +32,10 @@ from torch_predict_cases import CHANBITS
 WB0 = (1 << KB0) - 1
 RICE = (MB0, KB0, WB0)
 ORDERS = (0, 1, 4, 8, 9, 16, 17, 30, 31)
+PART_BITS = 512          # bits of one refill of the staged window
+# a starting mean whose update triggers a zero run (its low 30 bits are
+# small) with a zero-run parameter of about 2**24 bits
+MB0_JUMP = (1 << 30) + 5
 
 
 def decode_lanes(rng, L: int, S: int, rows: int | None = None,
@@ -47,6 +63,78 @@ def decode_lanes(rng, L: int, S: int, rows: int | None = None,
     lane = {k: v.astype(bool if k == "skip" else np.int32)
             for k, v in lane.items()}
     coefs = rng.integers(-300, 300, (L, taps))
+    coefs[:, :3] = (160, -190, 170)
+    lane["coefs"] = coefs.astype(np.int32)
+    return words, lane
+
+
+def _set_bits(row, pos: int, bits: str) -> None:
+    """Write the string of '0'/'1' ``bits`` into the big-endian u32 row
+    from bit ``pos`` on (bits past the row are dropped)."""
+    for i, b in enumerate(bits):
+        w, sh = divmod(pos + i, 32)
+        if w >= len(row):
+            return
+        mask = np.uint32(1 << (31 - sh))
+        row[w] = (row[w] | mask) if b == "1" else (row[w] & ~mask)
+
+
+def window_lanes(rng, L: int, S: int, rows: int | None = None,
+                 tail: int = 1):
+    """(words (rows, W), lane dict as decode_lanes' with coefs (L, 8)),
+    numpy, for the staged window's edges.  W = 4 * max(4, S // 8) + tail,
+    so most streams run past the row's last word.  Lane i: start bit
+    residues in turn; i % 8 == 7 starts in the last three words, i % 8 == 6
+    just before a refill boundary, i % 8 in (2, 3) begins, at a residue
+    from 31 down, with an escape at chanbits 32 / 33 of payload 0, which
+    (mean MB0) triggers a zero run whose codeword follows at once,
+    escaped itself on every other such lane; the rest start anywhere in
+    the row.  Rows 0 mod 4 are
+    zero-heavy, 1 mod 4 one-heavy (escapes); skip and num as in
+    decode_lanes."""
+    rows = L if rows is None else rows
+    W = 4 * max(4, S // 8) + tail
+    words = rng.integers(0, 1 << 32, (rows, W), dtype=np.uint64)
+    words = words.astype(np.uint32)
+    other = rng.integers(0, 1 << 32, (rows, W), dtype=np.uint64)
+    other = other.astype(np.uint32)
+    words[::4] &= other[::4]
+    words[1::4] |= other[1::4]
+    i = np.arange(L)
+    kind = i % 8
+    # residues 0, 1, ..., 31, 0, ... in turn over the lanes of the other
+    # kinds, so 51 or more lanes take every residue
+    residue = (np.cumsum(~np.isin(kind, (2, 3, 6))) - 1) % 32
+    start = rng.integers(0, W, L) * 32 + residue
+    start = np.where(kind == 7, (W - 1 - (i // 8) % 3) * 32 + residue, start)
+    parts = max(1, (W * 32) // PART_BITS)
+    near = (1 + (i // 8) % parts) * PART_BITS - 1 - i % 48
+    start = np.where(kind == 6, near, start)
+    # the escape lanes sweep the high residues, where the zero-run
+    # codeword after a 42-bit escape reaches the window's fourth word
+    esc_start = rng.integers(0, W - 4, L) * 32 + 31 - (i // 16) % 16
+    start = np.where((kind == 2) | (kind == 3), esc_start, start)
+    cb = np.array([CHANBITS[k % len(CHANBITS)] for k in i])
+    cb = np.where(kind == 2, 32, np.where(kind == 3, 33, cb))
+    for lane in np.nonzero((kind == 2) | (kind == 3))[0]:
+        row = words[lane % rows]
+        pos = int(start[lane])
+        pattern = "1" * 9 + "0" * int(cb[lane])
+        if (lane // 8) % 2:
+            pattern += "1" * 9           # the zero-run codeword escapes
+        _set_bits(row, pos, pattern)
+    lane = dict(
+        start=start,
+        cb=cb,
+        pb=np.where(i % 3 == 0, PB0, (PB0 * rng.integers(0, 8, L)) // 4),
+        mode=np.where(i % 5 == 1, 15, 0),
+        order=np.array([ORDERS[(k // 3) % 5] for k in i]),
+        den=np.where(i % 7 == 3, rng.integers(1, 16, L), 9),
+        num=np.where(i % 4 == 1, rng.integers(1, S + 1, L), S),
+        skip=(i % 6 == 5))
+    lane = {k: v.astype(bool if k == "skip" else np.int32)
+            for k, v in lane.items()}
+    coefs = rng.integers(-300, 300, (L, 8))
     coefs[:, :3] = (160, -190, 170)
     lane["coefs"] = coefs.astype(np.int32)
     return words, lane
