@@ -28,20 +28,41 @@
 // Bound: the per-lane serial bit cursor (each codeword's position depends
 // on every earlier length) and the FIR recurrence, so the latency of one
 // lane's chain; there are only B lanes per channel (4096 = 128 warps at
-// B=4096), too few to fill the card's 132 SMs x 4 schedulers.  The walk
-// costs TAPS multiply-adds and TAPS adaptation steps per sample whatever
-// the lane's order, so the 30-tap instance does about 4x the 8-tap work.
+// B=4096), too few to fill the card's 132 SMs x 4 schedulers, so each
+// warp has a scheduler to itself and every dependent instruction costs
+// its whole latency.  The walk costs a multiply-add and a sign-sign step
+// per tap of the lane's order per sample.
 //
 // Design.  Per 32 lanes, a Rice warp decodes tile p's residuals (TILE
-// samples of each lane) into a shared ring while an FIR warp walks tile
-// p - 1; a named barrier ends each phase, so the bit cursor's chain and
-// the walk overlap.  Each thread keeps its lane's state in registers: the
-// Rice warp the cursor and the adaptive mean, the FIR warp the TAPS+1
-// lags and the TAPS coefficients, walked by fully unrolled predicate
-// chains (every array index is a compile-time constant).  The FIR warp
-// fills a 32-lane x 32-sample shared tile (pitch 33: no bank conflicts
-// either way) and stores it to (L, S) row by row, 128 coalesced bytes per
-// store.
+// samples of each lane) into a shared ring, an FIR warp walks tile p - 1
+// into a shared output tile, and a store warp writes tile p - 2 to (L, S)
+// row by row, 128 coalesced bytes per store (tiles 32 lanes x 32 samples,
+// pitch 33: no bank conflicts either way); a named barrier ends each
+// phase, so the bit cursor's chain, the walk and the stores overlap.
+//
+// The FIR warp (Fir, fir_warp) keeps its lane's state in registers and
+// walks straight-line code, no tap under a predicate:
+//   - a warp walks at the narrowest width NW of 4, 8, 16, 30 (up to TAPS)
+//     that covers its walking lanes' orders; taps from a lane's order up
+//     hold a zero coefficient and a zero step weight, so no tap takes a
+//     predicate;
+//   - the sign-sign adaptation is in prefix form (the plain version's
+//     reversed cumulative sum and product): each tap's step depends on
+//     its own lag alone, the error tap k sees is x less the steps above
+//     it (one running sum from the top tap down), and a bit mask of the
+//     taps that find it on the wrong side, cut at its highest bit (clz),
+//     gives the taps that act; a coefficient's update waits on the mask,
+//     not on the taps above it;
+//   - the lag `top` (lags[na], a per-lane index) is read from a 32-slot
+//     shared history of the lane's outputs ([slot][lane], bank = lane),
+//     two steps ahead, not picked by a chain of TAPS + 1 selects;
+//   - every step walks, so the lags rotate unconditionally (a lane's
+//     outputs past its count, where the reference's state stops, repeat
+//     one output, held by a select); the step loop is not unrolled, since
+//     unrolled bodies, whose lags are renamed and not moved, ran slower;
+//   - the warm-up (steps t <= the warp's largest order) takes a copy of
+//     the step with its selects, the rest none.
+// PERF.md §6 records each step measured on the way (the FIR step table).
 //
 // The Rice decoder (Bits, RiceDec) is one for all five instances, and
 // keeps device memory off its chain.  Each lane stages its row's words in
@@ -88,6 +109,8 @@
 // `cycles` (or nullptr) receives each Rice warp's clock64 cycles inside
 // its decode loop (and, for the full decode, each FIR warp's inside its
 // walk, a second row): PERF.md §6 reads them as cycles per codeword.
+#include <climits>
+
 #include "common.cuh"
 
 namespace alac {
@@ -330,92 +353,136 @@ struct RiceDec {
     }
 };
 
-// The inverse predictor of a substep (_substep_core): residual -> sample.
-template <int TAPS>
+// the low 16 bits, sign-extended (sext(x, 16)) in one instruction: prmt
+// copies bytes 0 and 1 and fills bytes 2 and 3 with byte 1's sign
+__device__ __forceinline__ int sext16(int x) {
+    int r;
+    asm("prmt.b32 %0, %1, 0, 0x9910;" : "=r"(r) : "r"(x));
+    return r;
+}
+
+constexpr int HIST = 32;             // the history ring's slots: > MAX_TAPS
+
+// The inverse predictor of a substep (_substep_core): residual -> sample,
+// for a lane whose walk is at most NW taps wide.  Every step walks: the
+// reference's state stops at the lane's count, so its outputs past the
+// count all equal its output at step `last` (the first step past the
+// count; for order 31, whose running sum stops there, the step before),
+// held by `held`.  Taps from the lane's order up carry a zero coefficient
+// and a zero step weight, so they take no predicates.
+template <int NW>
 struct Fir {
-    int lags[TAPS + 1], coefs[TAPS];
-    int na_k, den, c, n_eff, s1_acc, acc31;
-    unsigned sh;                    // 32 - chanbits: sext_sh's shift
+    int lags[NW];                   // the last NW samples, newest first
+    int coefs[NW];                  // 16-bit values; 0 from the order up
+    int negw[NW];                   // k - na below the order, else 0
+    int na, den, half, last;
+    unsigned sh, on;                // sh = 32 - chanbits; on: the taps
     bool mode_nz, is0, is31;
+    int s1_acc, acc31, held, top0, top1;
+    int* hist;                      // the lane's column of the ring
 
     __device__ __forceinline__ void init(const DecodeArgs& a, int lane,
-                                         int n) {
-        const int na = a.numactive[lane];
-        na_k = na < 1 ? 1 : (na > MAX_TAPS ? MAX_TAPS : na);
-        if (na_k > TAPS) na_k = TAPS;
+                                         int n, int na_k, int* col) {
+        const int order = a.numactive[lane];
+        is0 = order == 0;
+        is31 = order == 31;
+        na = na_k < NW ? na_k : NW;     // below na_k only on 0/31 lanes
         den = a.denshift[lane] < 1 ? 1 : a.denshift[lane];
+        half = 1 << (den - 1);
         mode_nz = a.mode[lane] != 0;
-        is0 = na == 0;
-        is31 = na == 31;
         sh = 32u - (unsigned)a.chanbits[lane];
-        c = 0;
-        n_eff = n;
+        last = is31 ? n - 1 : n;
+        on = (1u << na) - 1u;
         s1_acc = 0;
         acc31 = 0;
+        held = 0;
+        top0 = 0;
+        top1 = 0;
+        hist = col;
 #pragma unroll
-        for (int i = 0; i <= TAPS; ++i) lags[i] = 0;
+        for (int i = 0; i < HIST; ++i) hist[i * LANES] = 0;
 #pragma unroll
-        for (int k = 0; k < TAPS; ++k)
-            coefs[k] = k < a.coef_n ? a.coefs0[(size_t)lane * a.coef_n + k]
-                                    : 0;
+        for (int k = 0; k < NW; ++k) {
+            lags[k] = 0;
+            coefs[k] = k < na && k < a.coef_n
+                           ? sext16(a.coefs0[(size_t)lane * a.coef_n + k])
+                           : 0;
+            negw[k] = k < na ? k - na : 0;
+        }
     }
 
-    __device__ __forceinline__ int step(int res) {
-        const bool active = c < n_eff;
-        const int s1_acc2 = active ? wadd(s1_acc, res) : s1_acc;
-        const int x_t = mode_nz ? sext_sh(s1_acc2, sh) : res;
-        int top = 0;
+    // sample t of the lane; WARM: t may lie in some lane's warm-up
+    // (t <= na), else t > na on every lane
+    template <bool WARM>
+    __device__ __forceinline__ int step(int res, int t) {
+        s1_acc = wadd(s1_acc, res);
+        const int x = mode_nz ? sext_sh(s1_acc, sh) : res;
+        acc31 = wadd(acc31, x);
+        const int top = top0;
+        int dd[NW];
 #pragma unroll
-        for (int j = 0; j <= TAPS; ++j)
-            top = select_opaque(na_k == j, lags[j], top);
-        const bool in_warm = c <= na_k;
-        int sum1 = 1 << (den - 1);
+        for (int k = 0; k < NW; ++k) dd[k] = wsub(top, lags[k]);
+        // sum1 = half - sum c_k dd_k, in two partial sums, the newest lag's
+        // term (tap 0, which waits on the last output) added last
+        int pa = 0, pb = 0;
 #pragma unroll
-        for (int kk = 0; kk < TAPS; ++kk)
-            if (kk < na_k)
-                sum1 = wadd(sum1, wmul(coefs[kk], wsub(lags[kk], top)));
-        const int pred_adj = sum1 >> den;
-        int out;
-        if (c == 0)
-            out = x_t;
-        else if (in_warm)
-            out = sext_sh(wadd(x_t, lags[0]), sh);
-        else
-            out = sext_sh(wadd(wadd(x_t, top), pred_adj), sh);
-
-        // sign-sign adaptation from the last tap down, in place: tap kk's
-        // coefficient is read only by its own step of this walk
-        const bool adapt = active && !in_warm;
-        const int sg = sign_of(x_t);
-        int del0 = x_t;
-#pragma unroll
-        for (int kk = TAPS - 1; kk >= 0; --kk) {
-            const bool going = sg > 0 ? del0 > 0 : del0 < 0;
-            const bool act_k = adapt && sg != 0 && going && kk < na_k;
-            const int dd = wsub(top, lags[kk]);
-            const int sgn = sign_of(dd);
-            const int upd = sg > 0 ? -sgn : sgn;
-            if (active) coefs[kk] = sext(wadd(coefs[kk], act_k ? upd : 0), 16);
-            const int mag = wmul(sgn, dd);
-            const int term = sg > 0 ? (mag >> den) : (wneg(mag) >> den);
-            if (act_k) del0 = wsub(del0, wmul(na_k - kk, term));
+        for (int k = NW - 1; k > 0; --k) {
+            if (k & 1)
+                pa = wadd(pa, wmul(coefs[k], dd[k]));
+            else
+                pb = wadd(pb, wmul(coefs[k], dd[k]));
         }
-
+        const int dot = wadd(wadd(pa, pb), wmul(coefs[0], dd[0]));
+        const int pred = wsub(half, dot) >> den;
+        int out = sext_sh(wadd(wadd(x, top), pred), sh);
+        if (WARM) {
+            if (t <= na) out = sext_sh(wadd(x, lags[0]), sh);
+            if (t == 0) out = x;
+        }
         // special-mode overlays (mode 0: pass-through; mode 31: cumsum)
-        const int acc31_2 = active ? wadd(acc31, x_t) : acc31;
         if (is0)
-            out = x_t;
+            out = x;
         else if (is31)
-            out = sext_sh(acc31_2, sh);
-        if (active) {
+            out = sext_sh(acc31, sh);
+        held = t > last ? held : out;
+
+        // the ring: this output in; the lag `top` of step t + 2, the output
+        // of step t + 1 - na (na >= 1: this step's at the latest), out
+        hist[(t & (HIST - 1)) * LANES] = out;
+        top0 = top1;
+        top1 = hist[((t + 1 - na) & (HIST - 1)) * LANES];
+
+        // Sign-sign adaptation in prefix form.  Tap k's step is
+        // (na - k) * (dd_k * v_k >> den), v_k = +-sign(dd_k) by the side of
+        // the error, and does not depend on the taps above it; the error
+        // tap k sees is x less the steps of the taps above it (a running
+        // sum from the top tap down, all of which acted if k acts).  Tap
+        // k fails when that error leaves x's side: err <= 0 for x > 0,
+        // err >= 0 for x < 0, i.e. (unsigned)(err + bias) >= thr.  The taps
+        // that act are those above the highest failure.
+        const int sg = sign_of(x);
+        unsigned live = sg != 0 ? on : 0u;
+        if (WARM && t <= na) live = 0u;
+        const int sgp = sg > 0 ? 1 : -1;
+        const int bias = sg > 0 ? -1 : INT_MIN;
+        const unsigned thr = sg > 0 ? 0x7FFFFFFFu : 0x80000000u;
+        int h = wadd(x, bias);
+        unsigned fails = 0u;
+        int v[NW];
 #pragma unroll
-            for (int j = TAPS; j > 0; --j) lags[j] = lags[j - 1];
-            lags[0] = out;
-            c += 1;
+        for (int k = NW - 1; k >= 0; --k) {
+            v[k] = sgp * max(min(dd[k], 1), -1);
+            if ((unsigned)h >= thr) fails |= 1u << k;
+            if (k > 0) h = wadd(h, wmul(negw[k], wmul(dd[k], v[k]) >> den));
         }
-        s1_acc = s1_acc2;
-        acc31 = acc31_2;
-        return out;
+        const unsigned acts = live & (~0u << (32 - clz32(fails & live)));
+#pragma unroll
+        for (int k = 0; k < NW; ++k)
+            if (acts & (1u << k)) coefs[k] = sext16(wsub(coefs[k], v[k]));
+#pragma unroll
+        for (int k = NW - 1; k > 0; --k) lags[k] = lags[k - 1];
+        lags[0] = out;
+        return held;
     }
 };
 
@@ -430,11 +497,54 @@ __device__ __forceinline__ void store_rows(const int (*tile)[PITCH],
         base[(size_t)(lane0 + r) * a.S] = tile[r][lid];
 }
 
-// Warp 0 of a block decodes its 32 lanes' residuals, warp 1 walks them.
+constexpr int DECODE_THREADS = 96;   // the Rice, FIR and store warps
+
+// The FIR warp at walk width NW: tile p - 1's samples in phase p, the
+// steps of the warm-up (t <= the warp's largest order) through the step
+// with its selects, the rest through the one without.  The loops are not
+// unrolled: a body of 4 or 8 steps (lags renamed, not moved) ran slower
+// than one step at every width (PERF.md §6, the FIR step table).
+// Returns its clock64 cycles inside the walk.
+template <int NW>
+__device__ __forceinline__ long long fir_warp(const DecodeArgs& a, int ln,
+                                           int n_eff, int na_k,
+                                           const int (*ring)[TILE][PITCH],
+                                           int (*otile)[TILE][PITCH],
+                                           int* col, int lid) {
+    Fir<NW> f;
+    f.init(a, ln, n_eff, na_k, col);
+    const int warm = (int)__reduce_max_sync(FULL, (unsigned)f.na) + 1;
+    const int n_tiles = (a.S + TILE - 1) / TILE;
+    long long cyc = 0;
+    for (int p = 0; p <= n_tiles + 1; ++p) {
+        if (p > 0 && p <= n_tiles) {
+            const long long c0 = clock64();
+            const int t0 = (p - 1) * TILE, cnt = min(TILE, a.S - t0);
+            const int (*in)[PITCH] = ring[(p - 1) & 1];
+            int (*out)[PITCH] = otile[(p - 1) & 1];
+            int j = 0;
+            if (p == 1) {
+#pragma unroll 1
+                for (; j < min(warm, cnt); ++j)
+                    out[lid][j] = f.template step<true>(in[j][lid], j);
+            }
+#pragma unroll 1
+            for (; j < cnt; ++j)
+                out[lid][j] = f.template step<false>(in[j][lid], t0 + j);
+            cyc += clock64() - c0;
+        }
+        phase_barrier(DECODE_THREADS);
+    }
+    return cyc;
+}
+
+// Warp 0 of a block decodes its 32 lanes' residuals, warp 1 walks them,
+// warp 2 stores the samples.
 template <int TAPS>
 __global__ void decode_kernel(const DecodeArgs a) {
     __shared__ int ring[2][TILE][PITCH];
-    __shared__ int otile[TILE][PITCH];
+    __shared__ int otile[2][TILE][PITCH];
+    __shared__ int hist[HIST][LANES];
     __shared__ RiceRing staged;
     const int warp = threadIdx.x >> 5, lid = threadIdx.x & 31;
     const int lane0 = blockIdx.x * 32, lane = lane0 + lid;
@@ -451,7 +561,7 @@ __global__ void decode_kernel(const DecodeArgs a) {
         RiceDec r;
         r.init(a, ln, n_eff, staged);
         long long cyc = 0;
-        for (int p = 0; p <= n_tiles; ++p) {
+        for (int p = 0; p <= n_tiles + 1; ++p) {
             if (p < n_tiles) {
                 const long long c0 = clock64();
                 const int t0 = p * TILE, cnt = min(TILE, S - t0);
@@ -459,7 +569,7 @@ __global__ void decode_kernel(const DecodeArgs a) {
                 for (int j = 0; j < cnt; ++j) ring[p & 1][j][lid] = r.next();
                 cyc += clock64() - c0;
             }
-            phase_barrier(64);
+            phase_barrier(DECODE_THREADS);
         }
         r.bits.drain();
         if (a.cycles && lid == 0) a.cycles[blockIdx.x] = cyc;
@@ -467,25 +577,36 @@ __global__ void decode_kernel(const DecodeArgs a) {
             a.end_bits[lane] = r.bits.bitpos;
             a.err[lane] = (r.err || bad_order) ? 1 : 0;
         }
-    } else {
-        // tile p - 1's samples in phase p
-        Fir<TAPS> f;
-        f.init(a, ln, n_eff);
-        long long cyc = 0;
-        for (int p = 0; p <= n_tiles; ++p) {
-            if (p > 0) {
-                const long long c0 = clock64();
-                const int t0 = (p - 1) * TILE, cnt = min(TILE, S - t0);
-                for (int j = 0; j < cnt; ++j)
-                    otile[lid][j] = f.step(ring[(p - 1) & 1][j][lid]);
-                cyc += clock64() - c0;
-                __syncwarp();
-                store_rows(otile, a, lane0, t0, cnt, lid);
-                __syncwarp();
-            }
-            phase_barrier(64);
-        }
+    } else if (warp == 1) {
+        int na_k = na < 1 ? 1 : (na > MAX_TAPS ? MAX_TAPS : na);
+        if (na_k > TAPS) na_k = TAPS;
+        // the warp walks at the narrowest width that covers its walking
+        // lanes' orders (lanes of order 0 and 31 need no walk)
+        const bool walks = live && na != 0 && na != 31;
+        const int width =
+            (int)__reduce_max_sync(FULL, walks ? (unsigned)na_k : 0u);
+        int* col = &hist[0][lid];
+        long long cyc;
+        if (TAPS > 16 && width > 16)
+            cyc = fir_warp<TAPS>(a, ln, n_eff, na_k, ring, otile, col, lid);
+        else if (TAPS > 8 && width > 8)
+            cyc = fir_warp<(TAPS < 16 ? TAPS : 16)>(a, ln, n_eff, na_k, ring,
+                                                    otile, col, lid);
+        else if (width > 4)
+            cyc = fir_warp<8>(a, ln, n_eff, na_k, ring, otile, col, lid);
+        else
+            cyc = fir_warp<4>(a, ln, n_eff, na_k, ring, otile, col, lid);
         if (a.cycles && lid == 0) a.cycles[gridDim.x + blockIdx.x] = cyc;
+    } else {
+        // tile p - 2's samples to (L, S) in phase p
+        for (int p = 0; p <= n_tiles + 1; ++p) {
+            if (p >= 2) {
+                const int t0 = (p - 2) * TILE;
+                store_rows(otile[(p - 2) & 1], a, lane0, t0,
+                           min(TILE, S - t0), lid);
+            }
+            phase_barrier(DECODE_THREADS);
+        }
     }
 }
 
@@ -558,7 +679,7 @@ __global__ void raw_kernel(const DecodeArgs a) {
 
 template <int TAPS>
 int launch(const DecodeArgs& a, cudaStream_t st) {
-    decode_kernel<TAPS><<<(a.L + 31) / 32, 64, 0, st>>>(a);
+    decode_kernel<TAPS><<<(a.L + 31) / 32, DECODE_THREADS, 0, st>>>(a);
     return (int)cudaGetLastError();
 }
 

@@ -35,6 +35,7 @@ from ..types import (
     N_MEAN_CLAMP_VAL, PBSHIFT, QB, QBSHIFT,
 )
 
+from . import tutils
 from .tutils import (
     I32, I64, MASK32, clz32, count_work, iota1, sign_extend, u32, wrap_i32,
 )
@@ -315,6 +316,12 @@ def decode_channel(words, start_bits, num_samples: int, chanbits,
         still = torch.flip(torch.cumprod(torch.flip(ok.to(I64), [1]), 1), [1])
         acts = can & (still == 1)
         count_work("taps", acts & walks)
+        if tutils.WORK is not None:
+            # how many taps act in each step that may adapt: 0..na_k
+            n_act = acts.sum(dim=1)
+            stops = torch.nn.functional.one_hot(n_act, taps + 1).bool()
+            count_work("stops", stops & (walks & active[:, None]
+                                         & ~in_warm[:, None]))
         upd = torch.where(acts, torch.where(pos, -sgn, sgn), 0)
         new_coefs = sign_extend(coefs + upd, 16)
 

@@ -36,7 +36,11 @@ Phases, each of which exits nonzero on failure:
      synthetic inputs (tests/torch_decode_cases.py); every decode
      instance on that file's window_lanes (WINDOW_CASES: the edges of the
      Rice decoder's staged window, with the usual starting mean and with
-     MB0_JUMP); and per merge
+     MB0_JUMP); the 8-, 16- and 30-tap decode on its fir_lanes
+     (FIR_CASES: Rice-coded small residuals that stop the sign-sign walk
+     at every tap, warps of one order and of mixed orders, every
+     denshift, coefficients at the 16-bit limits, samples that wrap at
+     chanbits 32); and per merge
      signature torch's scatter_ (merge's compaction half) beside the
      merge kernel's scatter alone and the whole merge; the results
      must be exactly equal; each call's bound is printed beside (see
@@ -44,8 +48,9 @@ Phases, each of which exits nonzero on failure:
      at the SMs' issue rate, whichever is longer), each predictor
      call's walker warps' clock64 cycles per step, and each decode
      call's Rice warps' clock64 cycles per codeword (the FIR warps' per
-     step beside, for a full decode), with those times S over the SM
-     clock (the per-lane chain);
+     step beside, for a full decode, also per order mix of a warp's
+     walking lanes), with those times S over the SM clock (the per-lane
+     chain);
   4. the main path: TorchCodec encode_frames -> decode_frames_ex on the
      bench corpus (bench_torch.py :: make_music, B=4096 frames of 16-bit
      stereo, S=4096): lossless, no frame flagged, the first 256 packets
@@ -199,6 +204,9 @@ FUZZ_LANES = 256         # lanes of a new phase-13 signature's compare
 WINDOW_CASES = ((1, 64, 96, None), (2, 64, 96, 8), (3, 96, 77, 16),
                 (0, 40, 64, None), (1, 4096, 256, None),
                 (3, 4096, 256, 1024))
+# phase 3: tests/torch_decode_cases.py :: fir_lanes cases, (lanes,
+# samples) at each tap count of the full decode
+FIR_CASES = ((256, 256),)
 # phase 14: the merge invariant on 7.1, then the bench family once
 MERGE_SEED = 25          # the seed of the 7.1 rows' noise
 N_MERGE_NATIVE = 64      # 7.1 packets held to the native C++ encoder
@@ -915,8 +923,12 @@ def rice_cycles(calls, clock_hz: float):
     codeword (a step: one codeword or one sample of a zero run; mean and
     most over the warps) and the most times S over the SM clock: the
     Rice chain, in ms; for a full decode the FIR warps' cycles per step
-    beside."""
+    beside, and its mean per order mix of a warp's walking lanes
+    (tools/torch_rice_ab.py :: order_mix)."""
     import torch
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tools"))
+    from torch_rice_ab import order_mix
     for name, wrapper, _, args, kwargs in calls:
         if name not in DECODES:
             continue
@@ -935,6 +947,13 @@ def rice_cycles(calls, clock_hz: float):
         if full:
             line += (f"; FIR cycles per step: mean {per[1].mean().item():.1f}"
                      f", most {per[1].max().item():.1f}")
+            mix = {}
+            for key, c in zip(order_mix(args[10], kwargs.get("taps", 8)),
+                              per[1].tolist()):
+                mix.setdefault(key, []).append(c)
+            line += "; by order mix: " + ", ".join(
+                f"{k} {len(v)} warps mean {sum(v) / len(v):.1f}"
+                for k, v in sorted(mix.items(), key=lambda kv: -len(kv[1])))
         print(line, flush=True)
 
 
@@ -1989,6 +2008,43 @@ def window_cases(rows, repo: str):
           "starting means: max_abs_err 0", flush=True)
 
 
+def fir_cases(rows, repo: str):
+    """Phase 3: the 8-, 16- and 30-tap decode on tests/torch_decode_cases
+    .py :: fir_lanes (the FIR walk's stops at every tap, one-order and
+    mixed warps, every denshift, coefficients at the 16-bit limits,
+    wrapping samples, counts inside the warm-up), each exactly equal to
+    its plain version."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.join(repo, "tests"))
+    from torch_decode_cases import RICE, fir_lanes
+    from alacjax_torch.kernels import decode as kd
+    mb0, kb, wb = RICE
+    n = 0
+    for L, Sc in FIR_CASES:
+        for taps in (8, 16, 30):
+            words, lane = fir_lanes(np.random.default_rng(taps), L, Sc, taps)
+            w = torch.from_numpy(words.view(np.int32)).to("cuda")
+            t = {k: torch.from_numpy(v).to("cuda") for k, v in lane.items()}
+            args = (w, t["start"], Sc, t["cb"], mb0, t["pb"], kb, wb,
+                    t["coefs"], t["mode"], t["order"], t["den"])
+            for num in (t["num"], None):
+                kw = dict(num=num, taps=taps, chanbits_max=33)
+                name = kd.counter(taps)
+                err = max_abs_err(kd.decode_channel(*args, **kw),
+                                  kd.plain(*args, **kw))
+                rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                                err)
+                if err:
+                    fail(f"{name} kernel disagrees with its plain version on "
+                         f"fir_lanes L={L} S={Sc} taps={taps} "
+                         f"num={'per lane' if num is not None else 'S'}")
+                n += 1
+    print(f"  FIR walk: {n} calls of the 8-, 16- and 30-tap decode on "
+          f"fir_lanes {FIR_CASES}, with and without num: max_abs_err 0",
+          flush=True)
+
+
 def raw_drive(codec, words):
     """alacjax_torch.ops.rice.rice_decode of every frame's first channel:
     its Rice start and parameter from decode_frames_device's "params"
@@ -2400,6 +2456,7 @@ def main() -> int:
     predict_tile_edges(rows, repo)
     chanbits33_cases(rows, repo)
     window_cases(rows, repo)
+    fir_cases(rows, repo)
     del new_calls, legacy, legacy51, stacked, stacked51, run
     missing = [k for k, r in rows.items() if r["calls"] == 0]
     if missing:

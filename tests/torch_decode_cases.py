@@ -1,9 +1,10 @@
 """Synthetic inputs of the decode kernel's instances (csrc/decode.cu: the
 8/16/30-tap decode, the cursor and the raw decode), shared by the CPU
 tests against alacjax (tests/test_torch_chanbits33.py,
-tests/test_torch_raw_decode.py, tests/test_torch_rice_window.py), the
-card tests of the kernels (tests/test_torch_port.py,
-tests/test_torch_rice_window.py) and chip_smoke.py's phase 3.  No jax
+tests/test_torch_raw_decode.py, tests/test_torch_rice_window.py,
+tests/test_torch_fir_walk.py), the card tests of the kernels
+(tests/test_torch_port.py, tests/test_torch_rice_window.py,
+tests/test_torch_fir_walk.py) and chip_smoke.py's phase 3.  No jax
 here: the card's machine lacks it.
 
 The words are random bits, so the lanes take every branch of the Rice
@@ -22,11 +23,17 @@ that run past the row's last word (clamped reads); escapes at chanbits
 too; rows of few and of many ones; any row width.  With
 ``MB0_JUMP`` as the mean's start a lane's first zero-run codeword is
 millions of bits long, so its cursor leaves the staged words for the
-row's end."""
+row's end.
+
+``fir_lanes`` aims at the FIR walk: small residuals coded by the Rice
+coder, so the sign-sign adaptation stops at every tap, with warps of
+one order and of mixed orders (see its docstring)."""
 
 import numpy as np
 
-from alacjax_torch.types import KB0, MB0, PB0
+from alacjax_torch.bitbuffer import BitBuffer
+from alacjax_torch.oracle import ag
+from alacjax_torch.types import KB0, MAX_RUN_DEFAULT, MB0, PB0
 from torch_predict_cases import CHANBITS
 
 WB0 = (1 << KB0) - 1
@@ -138,3 +145,89 @@ def window_lanes(rng, L: int, S: int, rows: int | None = None,
     coefs[:, :3] = (160, -190, 170)
     lane["coefs"] = coefs.astype(np.int32)
     return words, lane
+
+
+def _rice_row(res, num: int, pb: int, bit_size: int, start: int, W: int,
+              rng):
+    """One lane's row: ``start`` random bits, then ``res[:num]`` coded by
+    the adaptive-Rice coder (the port's oracle, ag_enc.c :: dyn_comp) at
+    the decoder's parameters (MB0, pb, KB0), then random words: (W,)
+    uint32."""
+    bits = BitBuffer(byte_size=4 * W)
+    for n in (min(start, 32), min(max(start - 32, 0), 32), max(start - 64, 0)):
+        if n:
+            bits.write(int(rng.integers(0, 1 << n)), n)
+    ag.dyn_comp(ag.set_ag_params(MB0, pb, KB0, 0, 0, MAX_RUN_DEFAULT), bits,
+                res, num, bit_size)
+    used = -(-bits.get_position() // 32)
+    if used > W - 4:
+        raise ValueError(f"a lane's stream needs {used} words of {W}")
+    row = np.frombuffer(bytes(bits.buf), dtype=">u4").astype(np.uint32)
+    row[used:] = rng.integers(0, 1 << 32, W - used, dtype=np.uint64)
+    return row
+
+
+def fir_lanes(rng, L: int, S: int, taps: int):
+    """(words (L, W), lane dict as decode_lanes' with coefs (L, taps)),
+    numpy, for the adaptive FIR walk of the ``taps``-wide decode.  The
+    residuals are coded into each lane's row by the Rice coder, and are
+    mostly small (|r| <= 3, with runs of zeros), so the sign-sign walk
+    runs deep and stops at every tap; a lane of chanbits 32 starts with
+    three residuals near +-2**31, so its samples and the prediction wrap.
+
+    Warp 0 (lanes 0-31) walks at order ``taps`` alone, warp 1 at order 4
+    alone; the other lanes mix orders 1..taps, 0 and 31 (the mode-0 and
+    cumulative overlays), and above ``taps`` (flagged, walked at
+    ``taps``).  Lane i: denshift 1 + i % 15; chanbits 16, 17, 20, 24, 32 or 33
+    in turn, and mode 0, 15 or 31 for each six lanes in turn; coefficients in +-300, at
+    the 16-bit limits (every fifth lane) or within 8 of them (every fifth
+    lane but one); a count below order + 2 (the warm-up cut) on every
+    ninth lane, any count on another ninth, else S."""
+    i = np.arange(L)
+    warp = i // 32
+    # 13 orders: coprime with the periods of chanbits, mode and denshift
+    mixed = [taps, taps - 1, taps // 2, 1, 2, 3, 0, 31, 4, taps - 2,
+             (3 * taps) // 4, 5, taps + 1 if taps < 30 else 6]
+    order = np.where(warp == 0, taps, np.where(
+        warp == 1, 4, np.array([mixed[k % len(mixed)] for k in i])))
+    order = np.clip(order, 0, 31)
+    na_k = np.clip(np.clip(order, 1, 30), None, taps)
+    den = 1 + i % 15
+    mode = np.array((0, 15, 31))[(i // 6) % 3]
+    cb = np.array((16, 17, 20, 24, 32, 33))[i % 6]
+    num = np.full(L, S)
+    num = np.where(i % 9 == 4, rng.integers(0, na_k + 2), num)
+    num = np.where(i % 9 == 7, rng.integers(1, S + 1, L), num)
+    num = np.minimum(num, S)
+    coefs = rng.integers(-300, 301, (L, taps))
+    limits = rng.choice(np.array([-32768, 32767]), (L, taps))
+    coefs = np.where((i % 5 == 3)[:, None], limits, coefs)
+    near = limits - np.sign(limits) * rng.integers(0, 8, (L, taps))
+    coefs = np.where((i % 5 == 4)[:, None], near, coefs)
+    pb = np.where(i % 4 == 0, PB0, (PB0 * rng.integers(1, 8, L)) // 4)
+    res = rng.integers(-3, 4, (L, S))
+    res[rng.random((L, S)) < 0.3] = 0
+    zero_runs = rng.random((L, -(-S // 16))) < 0.1   # 16-sample runs
+    res[np.repeat(zero_runs, 16, axis=1)[:, :S]] = 0
+    big = cb == 32
+    res[big, :3] = rng.integers(-(1 << 31) + 1, 1 << 31, (int(big.sum()), 3))
+    start = rng.integers(0, 96, L)
+    W = 8 + (S * 34 + 96) // 32
+    words = np.stack([_rice_row(res[k], int(num[k]), int(pb[k]),
+                                min(int(cb[k]), 32), int(start[k]), W, rng)
+                      for k in range(L)])
+    lane = dict(start=start, cb=cb, pb=pb, mode=mode, order=order, den=den,
+                num=num, skip=np.zeros(L, bool), coefs=coefs)
+    lane = {k: v.astype(bool if k == "skip" else np.int32)
+            for k, v in lane.items()}
+    return words, lane
+
+
+def tile_lanes(words, lane, n: int):
+    """The lanes of a case repeated n times (words rows and per-lane
+    arrays alike): a launch of n times the lanes on the same streams."""
+    if n == 1:
+        return words, lane
+    return (np.tile(words, (n, 1)),
+            {k: np.tile(v, (n,) + (1,) * (v.ndim - 1))
+             for k, v in lane.items()})

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""The decode kernel's Rice warp (csrc/decode.cu: the cursor, the raw
-decode and the 8/16/30-tap decode) on one NVIDIA GPU, for one or more
-checkouts of the repository in turns:
+"""The decode kernel's Rice and FIR warps (csrc/decode.cu: the cursor,
+the raw decode and the 8/16/30-tap decode) on one NVIDIA GPU, for one or
+more checkouts of the repository in turns:
 
     python3 tools/torch_rice_ab.py [--sass OUT] DIR [DIR ...]
 
@@ -14,19 +14,29 @@ frames, encoded the same way), a checkout reports, for each decode
 kernel call of the chained stereo decode (two 8-tap launches), the
 stacked stereo and 5.1 decodes (the cursor launches and the stacked
 launch), rice_decode of the stereo frames' first channel (the raw
-instance) and the first 8-tap call again at 16 and 30 taps:
+instance), the first 8-tap call again at 16 and 30 taps, and that call
+with every lane's order forced to 8, 16 and 30 at 8, 16 and 30 taps
+(the corpus's lanes are all of order 4, so only these walk at full
+width):
   - its time on the card (CUDA events over 5 calls after a warm-up)
     and that time times the SM clock over S, the cycles one step takes;
   - where the checkout's wrappers take ``cycles``, the Rice warps'
     clock64 cycles per codeword (a step) inside their loops, mean and
-    most over the warps, and the FIR warps' per step for a full decode;
+    most over the warps, and the FIR warps' per step for a full decode,
+    also split by the order mix of each warp's walking lanes (a key such
+    as "4", "8" or "4+8": the distinct orders, clamped to the walk, of
+    the warp's lanes other than those of order 0 and 31), with each
+    mix's share of the warps;
   - a hash of its outputs: equal hashes across checkouts mean identical
     outputs;
 then the whole stacked and chained decodes of both corpora in turns
 (card-clock ms per batch), ptxas's registers, spills and shared memory
 for csrc/decode.cu, and per decode kernel function its innermost SASS
-loops (chip_smoke.py :: sass_loops) and its count of shared loads,
-device loads and cp.async copies.  The card's name and power limit come
+loops (chip_smoke.py :: sass_loops: size and shortest path in
+instructions; in a full decode's function, the FIR warp's step loops
+besides the Rice warp's, one per walk width, each U steps long where the
+walk is unrolled) and its count of shared loads, device loads and
+cp.async copies.  The card's name and power limit come
 first, then one JSON line per DIR, then which calls' outputs differ
 between the checkouts.  With ``--sass OUT`` each checkout also writes
 its decode kernels' SASS (`cuobjdump -sass`) to OUT/<n>.sass, n the
@@ -81,6 +91,19 @@ def sass_counts(out: str) -> dict:
                     counts[fn][op] += 1
                     break
     return counts
+
+
+def order_mix(numactive, taps: int) -> list[str]:
+    """Per warp of 32 lanes, the distinct orders (clamped to 1..taps) of
+    its walking lanes (not order 0 or 31), joined by "+"; "none" where
+    every lane is of order 0 or 31."""
+    na = numactive.cpu().tolist()
+    keys = []
+    for w0 in range(0, len(na), 32):
+        walk = sorted({min(max(o, 1), taps) for o in na[w0:w0 + 32]
+                       if o not in (0, 31)})
+        keys.append("+".join(map(str, walk)) or "none")
+    return keys
 
 
 def child(root: str, sass_out: str | None = None) -> dict:
@@ -145,6 +168,14 @@ def child(root: str, sass_out: str | None = None) -> dict:
     for taps in (16, 30):
         calls.append((f"chained stereo decode_hi taps {taps}", "decode_hi",
                       first[2], first[3], dict(first[4], taps=taps)))
+    # the same words with every lane's order forced to the walk's width
+    # (the corpus's search picks order 4 on every lane)
+    for taps in (8, 16, 30):
+        args = list(first[3])
+        args[10] = torch.full_like(args[10], taps)
+        calls.append((f"chained stereo order {taps} taps {taps}",
+                      "decode" if taps == 8 else "decode_hi", first[2],
+                      tuple(args), dict(first[4], taps=taps)))
 
     rows = []
     for label, name, wrapper, args, kwargs in calls:
@@ -167,6 +198,15 @@ def child(root: str, sass_out: str | None = None) -> dict:
             if full:
                 row["fir_cycles_per_step"] = dict(
                     mean=per[1].mean().item(), most=per[1].max().item())
+                mix = {}
+                for key, c in zip(order_mix(args[10],
+                                            kwargs.get("taps", 8)),
+                                  per[1].tolist()):
+                    mix.setdefault(key, []).append(c)
+                row["fir_cycles_by_order_mix"] = {
+                    k: dict(warps=len(v), share=len(v) / blocks,
+                            mean=sum(v) / len(v), most=max(v))
+                    for k, v in sorted(mix.items())}
         rows.append(row)
 
     turns = {}
