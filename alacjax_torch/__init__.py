@@ -25,7 +25,8 @@ Modules:
   * reader      — AlacReader: sample-accurate random access
   * checkpoint  — resumable_encode / finalize: journaled encodes
   * cli         — ``python -m alacjax_torch.cli`` (alacconvert)
-  * utils/      — stage annotations, StageTimer, StreamReport, get_logger
+  * utils/      — the span recorder (span, readback, enable, drain)
+                  and get_logger
   * kernels/, csrc/, ops/ — the CUDA kernels, their wrappers and their
                   plain torch versions
   * types, cookie, bitbuffer, oracle/, native/ — copies of alacjax's

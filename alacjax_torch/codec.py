@@ -41,7 +41,9 @@ back from the device, one readback for all of the flags known at the
 same point: the encode's after the search (every lane escaped; per
 element, any lane escaped), the decode's after each element's parse
 (every lane and any lane escaped; with the first element, any lane
-partial).  Tensors live on the codec's device; the kernel
+partial), through ``utils.metrics.readback``; each stage of the encode,
+the decode and the host API sits in a ``utils.metrics.span`` (README,
+"Tracing").  Tensors live on the codec's device; the kernel
 wrappers launch CUDA kernels for CUDA tensors and run the plain torch
 versions for CPU tensors.  The encoder's word images travel as int32 bit
 patterns (empty keys -1), the small header images as int64.
@@ -72,7 +74,7 @@ from .kernels import predict as k_predict
 from .ops import bitpack, fused_decode, matrix, predict, rice
 from .ops.tutils import I32, I64, MASK32, as_i32_bits, iota1, sign_extend, u32
 from .state import init_coefs_batched
-from .utils.metrics import stage_annotation
+from .utils.metrics import readback, span
 
 DEFAULT_CHUNK = 256
 
@@ -220,7 +222,7 @@ def _mixres_select(cpe_pairs, chanbits: int, config, nums=None,
     nd = (None if nums is None
           else _tile_lanes((nums + MIXRES_DILATE - 1) // MIXRES_DILATE,
                            len(cand)))
-    with stage_annotation("mixres_trial"):
+    with span("encode.mixres_trial"):
         _, c, _, _ = _price(st, init_coefs_batched(st.shape[0], dev),
                             (FAST_ORDER,), chanbits, nd, config, False,
                             predict_legacy)
@@ -256,7 +258,7 @@ def _search_channels(streams, chanbits_list, config, nums=None,
                            for od in orders])
     cb_all = _lane_chanbits(chanbits_list, B, dev)
     num_all = _tile_lanes(nums, W)
-    with stage_annotation("predict_cost"):
+    with span("encode.predict_cost"):
         res_o, c1_o, c2_o, coefs_o = _price(
             xs, c0s, tuple(orders), cb_all, num_all, config,
             len(stages) > 1, predict_legacy)
@@ -588,70 +590,74 @@ def _encode_packet_chunks(pcm, config: AlacConfig, num_words: int,
     elems = []
     ch = 0
     tag_counters = {}
-    for tag, width in config.elements:
-        instance = tag_counters.get(int(tag), 0)
-        tag_counters[int(tag)] = instance + 1
-        is_cpe = width == 2
-        chans = [pcm[:, ch + i, :].to(I32) for i in range(width)]
-        ch += width
-        split = [matrix.shift_off(c, bs) for c in chans]
-        elems.append(dict(
-            tag=tag, instance=instance, width=width, is_cpe=is_cpe,
-            chanbits=depth - 8 * bs + (1 if is_cpe else 0), chans=chans,
-            his=[h for h, _ in split], los=[lo for _, lo in split],
-            ch0=ch - width))
+    with span("encode.prep"):
+        for tag, width in config.elements:
+            instance = tag_counters.get(int(tag), 0)
+            tag_counters[int(tag)] = instance + 1
+            is_cpe = width == 2
+            chans = [pcm[:, ch + i, :].to(I32) for i in range(width)]
+            ch += width
+            split = [matrix.shift_off(c, bs) for c in chans]
+            elems.append(dict(
+                tag=tag, instance=instance, width=width, is_cpe=is_cpe,
+                chanbits=depth - 8 * bs + (1 if is_cpe else 0), chans=chans,
+                his=[h for h, _ in split], los=[lo for _, lo in split],
+                ch0=ch - width))
 
     # ---- stereo modes and the channel search ----
-    if config.search == "exhaustive" and not config.fast_mode:
-        _select_exhaustive(elems, config, nums, predict_legacy)
-    else:
-        _select_standard(elems, config, nums, predict_legacy, banks,
-                         mix_only=stop_at == "mix")
-        if stop_at == "mix":
-            return [e["streams"] for e in elems]
+    with span("encode.search"):
+        if config.search == "exhaustive" and not config.fast_mode:
+            _select_exhaustive(elems, config, nums, predict_legacy)
+        else:
+            _select_standard(elems, config, nums, predict_legacy, banks,
+                             mix_only=stop_at == "mix")
+            if stop_at == "mix":
+                return [e["streams"] for e in elems]
 
     # ---- per-element header / escape sizing; chained element starts ----
-    n_lane = S if nums is None else nums
-    start = torch.zeros((B,), dtype=I64, device=dev)
-    for e in elems:
-        width = e["width"]
-        # +16: mixBits/mixRes are present in every non-escape element
-        # (mono writes 0, 0); a partial lane's 32-bit numSamples field
-        # sits in both forms
-        hdr_bits = 23 + 16 + width * 16 + 16 * sum(e["orders"])
-        esc_bits = 23 + width * depth * n_lane
-        if nums is not None:
-            hdr_bits = hdr_bits + pbits
-            esc_bits = esc_bits + pbits
-        shift_bits = width * 8 * bs * n_lane
-        comp_bits = hdr_bits + shift_bits + sum(e["rice_bits"])
-        e["use_escape"] = comp_bits >= esc_bits
-        e["start"] = start
-        e["rice_start"] = start + hdr_bits + shift_bits
-        start = start + torch.where(e["use_escape"], esc_bits, comp_bits)
-    total_c = start
-
-    new_banks = None
-    if banks is not None:
-        # the oracle's commit rule: the winning order's bank takes the
-        # adapted coefficients unless the element escaped
-        new_banks = dict(banks)
+    with span("encode.sizing"):
+        n_lane = S if nums is None else nums
+        start = torch.zeros((B,), dtype=I64, device=dev)
         for e in elems:
-            for ci in range(e["width"]):
-                chan = e["ch0"] + ci
-                upd = dict(banks[chan])
-                for od, coefs in e["adapted"][ci].items():
-                    take = ~e["use_escape"] & (e["orders"][ci] == od)
-                    upd[od] = torch.where(take[:, None], coefs,
-                                          banks[chan][od])
-                new_banks[chan] = upd
+            width = e["width"]
+            # +16: mixBits/mixRes are present in every non-escape element
+            # (mono writes 0, 0); a partial lane's 32-bit numSamples field
+            # sits in both forms
+            hdr_bits = 23 + 16 + width * 16 + 16 * sum(e["orders"])
+            esc_bits = 23 + width * depth * n_lane
+            if nums is not None:
+                hdr_bits = hdr_bits + pbits
+                esc_bits = esc_bits + pbits
+            shift_bits = width * 8 * bs * n_lane
+            comp_bits = hdr_bits + shift_bits + sum(e["rice_bits"])
+            e["use_escape"] = comp_bits >= esc_bits
+            e["start"] = start
+            e["rice_start"] = start + hdr_bits + shift_bits
+            start = start + torch.where(e["use_escape"], esc_bits, comp_bits)
+        total_c = start
+
+        new_banks = None
+        if banks is not None:
+            # the oracle's commit rule: the winning order's bank takes the
+            # adapted coefficients unless the element escaped
+            new_banks = dict(banks)
+            for e in elems:
+                for ci in range(e["width"]):
+                    chan = e["ch0"] + ci
+                    upd = dict(banks[chan])
+                    for od, coefs in e["adapted"][ci].items():
+                        take = ~e["use_escape"] & (e["orders"][ci] == od)
+                        upd[od] = torch.where(take[:, None], coefs,
+                                              banks[chan][od])
+                    new_banks[chan] = upd
     if stop_at == "search":
         return [e["res"] for e in elems], total_c
 
     # one readback: every lane of every element escaped, then per element
     # whether any lane escaped
     ue = torch.stack([e["use_escape"] for e in elems])
-    flags = torch.cat([ue.all().reshape(1), ue.any(dim=1)]).tolist()
+    flags = readback(torch.cat([ue.all().reshape(1), ue.any(dim=1)]),
+                     "encode.flags")
     any_comp = not flags[0]
     for e, f in zip(elems, flags[1:]):
         e["any_escape"] = f
@@ -659,39 +665,40 @@ def _encode_packet_chunks(pcm, config: AlacConfig, num_words: int,
     # ---- one stacked Rice emission over every channel ----
     emitted = None
     cbs = [e["chanbits"] for e in elems for _ in range(e["width"])]
-    if any_comp:
-        feed, starts = [], []
-        for e in elems:
-            pos = e["rice_start"]
-            for ci in range(e["width"]):
-                feed.append(e["res"][ci])
-                starts.append(pos)
-                pos = pos + e["rice_bits"][ci]
-        with stage_annotation("rice_words"):
+    with span("encode.rice_words"):
+        if any_comp:
+            feed, starts = [], []
+            for e in elems:
+                pos = e["rice_start"]
+                for ci in range(e["width"]):
+                    feed.append(e["res"][ci])
+                    starts.append(pos)
+                    pos = pos + e["rice_bits"][ci]
             emitted = k_emit.rice_encode_words(
                 torch.cat(feed, dim=0), _lane_chanbits(cbs, B, dev), mb0, pb,
                 kb, wb, torch.cat(starts, dim=0).to(I32),
                 bit_size_cap=max(cbs), num=_tile_lanes(nums, len(feed)))
-    elif stop_at in ("rice", "assemble"):
-        # alacjax's skip_rice: empty chunks where every lane escaped
-        emitted = _skipped_emission(len(cbs) * B, S, max(cbs), dev)
+        elif stop_at in ("rice", "assemble"):
+            # alacjax's skip_rice: empty chunks where every lane escaped
+            emitted = _skipped_emission(len(cbs) * B, S, max(cbs), dev)
     if stop_at == "rice":
         cw, ck, _, ctv, ctk = emitted
         return cw, ck, ctv, ctk, total_c
 
-    # ---- END tag (3 bits) at the known end position: pure tails ----
-    phase = total_c & 31
-    end_hi = (7 << 29) >> phase
-    end_lo = torch.where(phase > 29, (7 << ((61 - phase) % 32)) & MASK32, 0)
-    end_tv = [end_hi, end_lo]
-    end_tk = [total_c >> 5, torch.where(phase > 29, (total_c >> 5) + 1, MASK32)]
-    total_bits = (total_c + 3).to(I32)
-    if stop_at == "assemble":
-        vals, keys, tv, tk = _mixed_chunks(elems, emitted, config, nums,
-                                           pad_to_escape=True)
-        return vals, keys, tv + end_tv, tk + end_tk, total_bits
-
-    with stage_annotation("assemble"):
+    with span("encode.assemble"):
+        # ---- END tag (3 bits) at the known end position: pure tails ----
+        phase = total_c & 31
+        end_hi = (7 << 29) >> phase
+        end_lo = torch.where(phase > 29, (7 << ((61 - phase) % 32)) & MASK32,
+                             0)
+        end_tv = [end_hi, end_lo]
+        end_tk = [total_c >> 5,
+                  torch.where(phase > 29, (total_c >> 5) + 1, MASK32)]
+        total_bits = (total_c + 3).to(I32)
+        if stop_at == "assemble":
+            vals, keys, tv, tk = _mixed_chunks(elems, emitted, config, nums,
+                                               pad_to_escape=True)
+            return vals, keys, tv + end_tv, tk + end_tk, total_bits
         if any_comp:
             words = _assemble_mixed(elems, emitted, end_tv, end_tk, config,
                                     nums, num_words)
@@ -833,7 +840,9 @@ def _assemble_all_escape(elems, end_tv, end_tk, config, nums,
         out[:, w0:w0 + Wp] |= placed[:, :Wp]
         pos = p0 + e["width"] * depth * S
     or_static(0b111, 3, pos)
-    out = out | torch.from_numpy(row.astype(np.int64)).to(dev)[None, :]
+    with span("encode.row.sync"):     # a pageable copy to the card
+        row_dev = torch.from_numpy(row.astype(np.int64)).to(dev)
+    out = out | row_dev[None, :]
     return as_i32_bits(out)
 
 
@@ -841,8 +850,9 @@ def encode_frames_device(pcm, config: AlacConfig, num_words: int, nums=None,
                          predict_legacy: bool = False):
     """(B, C, S) planar int32 tensor (+ optional (B,) per-lane sample
     counts) -> ((B, W) int32 word image, (B,) int32 total bits)."""
-    words, bits, _ = _encode_packet_chunks(pcm, config, num_words, nums=nums,
-                                           predict_legacy=predict_legacy)
+    with span("encode"):
+        words, bits, _ = _encode_packet_chunks(
+            pcm, config, num_words, nums=nums, predict_legacy=predict_legacy)
     return words, bits
 
 
@@ -863,9 +873,10 @@ def encode_stream_device(pcm, config: AlacConfig, num_words: int,
              for ch in range(config.num_channels)}
     words, bits = [], []
     for t in range(N):
-        w, b, banks = _encode_packet_chunks(
-            pcm[:, t].contiguous(), config, num_words,
-            predict_legacy=predict_legacy, banks=banks)
+        with span("encode"):
+            w, b, banks = _encode_packet_chunks(
+                pcm[:, t].contiguous(), config, num_words,
+                predict_legacy=predict_legacy, banks=banks)
         words.append(w)
         bits.append(b)
     return torch.stack(words, dim=1), torch.stack(bits, dim=1)
@@ -1120,6 +1131,14 @@ def decode_frames_device(words, config: AlacConfig, num_samples: int,
     after its parse; "scan" (its channels' reconstructed streams, (end
     bits, err)) after its channel decodes; "nounesc" the whole decode
     without the escape samples."""
+    with span("decode"):
+        return _decode_frames(words, config, num_samples, taps, stacked,
+                              stop_at)
+
+
+def _decode_frames(words, config: AlacConfig, num_samples: int, taps: int,
+                   stacked: bool, stop_at: str | None):
+    """decode_frames_device's program, inside its ``decode`` span."""
     if stop_at is not None:
         if stop_at not in DECODE_CUTS:
             raise ValueError(f"stop_at must be one of {DECODE_CUTS}, got "
@@ -1145,10 +1164,11 @@ def decode_frames_device(words, config: AlacConfig, num_samples: int,
     chans, elems = [], []       # stacked: per channel, per element
     for ei, (tag, width) in enumerate(config.elements):
         is_cpe = width == 2
-        p = _parse_element(w, bitpos, num, tag, width, config, S, max_ord,
-                           fast_hdr)
-        esc, num = p["esc"], p["num"]
-        err = err | p["err"]
+        with span("decode.parse"):
+            p = _parse_element(w, bitpos, num, tag, width, config, S,
+                               max_ord, fast_hdr)
+            esc, num = p["esc"], p["num"]
+            err = err | p["err"]
         chanbits = depth - 8 * bs + (1 if is_cpe else 0)
         bitpos = p["rice"]
         if stop_at == "params":
@@ -1157,77 +1177,88 @@ def decode_frames_device(words, config: AlacConfig, num_samples: int,
         # first element's, so whether any lane is partial is known here
         flags = [esc.all(), esc.any()] + ([(num < S).any()] if ei == 0
                                           else [])
-        all_esc, any_esc, *first = torch.stack(flags).tolist()
+        all_esc, any_esc, *first = readback(torch.stack(flags),
+                                            "decode.flags")
         if first:
             any_partial = first[0]
-        num_i32 = num.to(I32).contiguous()
 
         if stacked:
             # pass A: chain the channel starts with the cursor
-            for ci in range(width):
-                args = _channel_args(p, ci, config)
-                chans.append((bitpos, chanbits, esc) + args)
-                if len(chans) < n_total and not all_esc:
-                    end, cerr = k_decode.cursor_scan(
-                        words_i32, bitpos.to(I32).contiguous(), S, chanbits,
-                        config.mb, args[0], kb, wb, skip=esc, num=num_i32)
-                    err = err | (~esc & cerr)
-                    bitpos = torch.where(esc, bitpos, end.to(I64))
+            with span("decode.scan"):
+                num_i32 = num.to(I32).contiguous()
+                for ci in range(width):
+                    args = _channel_args(p, ci, config)
+                    chans.append((bitpos, chanbits, esc) + args)
+                    if len(chans) < n_total and not all_esc:
+                        end, cerr = k_decode.cursor_scan(
+                            words_i32, bitpos.to(I32).contiguous(), S,
+                            chanbits, config.mb, args[0], kb, wb, skip=esc,
+                            num=num_i32)
+                        err = err | (~esc & cerr)
+                        bitpos = torch.where(esc, bitpos, end.to(I64))
             elems.append((p, width, is_cpe, all_esc, any_esc))
         else:
-            recon = None
-            if not all_esc:
-                # chained channel scans: channel c+1 starts where channel
-                # c ends
-                recon = []
-                for ci in range(width):
-                    pb, coefs, mode, order, den = _channel_args(p, ci,
-                                                                config)
-                    samples, bitpos_n, rerr = k_decode.decode_channel(
-                        words_i32, bitpos.to(I32).contiguous(), S, chanbits,
-                        config.mb, pb, kb, wb, coefs, mode, order, den,
-                        num=num_i32, taps=taps)
-                    bitpos = torch.where(esc, bitpos, bitpos_n.to(I64))
-                    err = err | (~esc & rerr)
-                    recon.append(samples)
+            with span("decode.scan"):
+                recon = None
+                if not all_esc:
+                    # chained channel scans: channel c+1 starts where
+                    # channel c ends
+                    recon = []
+                    num_i32 = num.to(I32).contiguous()
+                    for ci in range(width):
+                        pb, coefs, mode, order, den = _channel_args(p, ci,
+                                                                    config)
+                        samples, bitpos_n, rerr = k_decode.decode_channel(
+                            words_i32, bitpos.to(I32).contiguous(), S,
+                            chanbits, config.mb, pb, kb, wb, coefs, mode,
+                            order, den, num=num_i32, taps=taps)
+                        bitpos = torch.where(esc, bitpos, bitpos_n.to(I64))
+                        err = err | (~esc & rerr)
+                        recon.append(samples)
             if stop_at == "scan":
                 if recon is None:
                     recon = [torch.zeros((B, S), dtype=I32, device=dev)
                              ] * width
                 return recon, (bitpos, err)
-            out_ch.extend(_element_pcm(
-                words_i32, w, p, recon, width, is_cpe, config, S, fast_hdr,
-                all_esc, any_esc, unescape=stop_at != "nounesc"))
+            with span("decode.pcm"):
+                out_ch.extend(_element_pcm(
+                    words_i32, w, p, recon, width, is_cpe, config, S,
+                    fast_hdr, all_esc, any_esc,
+                    unescape=stop_at != "nounesc"))
         bitpos = torch.where(esc, p["pos_esc"] + width * depth * num, bitpos)
 
     if stacked:
         # pass B: every channel in one stacked launch
-        samples_all = None
-        if not all(e[3] for e in elems):
-            def cat(i):
-                return torch.cat([c[i] for c in chans]).contiguous()
-            cbs = [c[1] for c in chans]
-            samples_all, _, rerr = k_decode.decode_channel(
-                words_i32, cat(0).to(I32), S, _lane_chanbits(cbs, B, dev),
-                config.mb, cat(3), kb, wb, cat(4), cat(5), cat(6), cat(7),
-                num=_tile_lanes(num, n_total), taps=taps,
-                chanbits_max=max(cbs))
-            err = err | (~cat(2) & rerr).reshape(n_total, B).any(dim=0)
+        with span("decode.scan"):
+            samples_all = None
+            if not all(e[3] for e in elems):
+                def cat(i):
+                    return torch.cat([c[i] for c in chans]).contiguous()
+                cbs = [c[1] for c in chans]
+                samples_all, _, rerr = k_decode.decode_channel(
+                    words_i32, cat(0).to(I32), S,
+                    _lane_chanbits(cbs, B, dev), config.mb, cat(3), kb, wb,
+                    cat(4), cat(5), cat(6), cat(7),
+                    num=_tile_lanes(num, n_total), taps=taps,
+                    chanbits_max=max(cbs))
+                err = err | (~cat(2) & rerr).reshape(n_total, B).any(dim=0)
         ci0 = 0
         for p, width, is_cpe, all_esc, any_esc in elems:
             recon = (None if all_esc else
                      [samples_all[(ci0 + ci) * B:(ci0 + ci + 1) * B]
                       for ci in range(width)])
             ci0 += width
-            out_ch.extend(_element_pcm(words_i32, w, p, recon, width, is_cpe,
-                                       config, S, fast_hdr, all_esc,
-                                       any_esc))
+            with span("decode.pcm"):
+                out_ch.extend(_element_pcm(words_i32, w, p, recon, width,
+                                           is_cpe, config, S, fast_hdr,
+                                           all_esc, any_esc))
 
-    pcm = torch.stack(out_ch, dim=1)
-    if any_partial:
-        pcm = torch.where(iota1(S, device=dev)[None, None, :]
-                          < num[:, None, None], pcm, 0)
-    return pcm.to(I32), err, num.to(I32)
+    with span("decode.pcm"):
+        pcm = torch.stack(out_ch, dim=1)
+        if any_partial:
+            pcm = torch.where(iota1(S, device=dev)[None, None, :]
+                              < num[:, None, None], pcm, 0)
+        return pcm.to(I32), err, num.to(I32)
 
 
 # ---------------------------------------------------------------------------
@@ -1339,12 +1370,13 @@ class TorchCodec:
         the work queued before it."""
         n = block.shape[0]
         pinned = self.device.type == "cuda"
-        host = torch.empty((rows,) + block.shape[1:], dtype=torch.int32,
-                           pin_memory=pinned)
-        h = host.numpy()
-        np.copyto(h[:n], block, casting="unsafe")
-        h[n:] = fill
-        return host.to(self.device, non_blocking=True) if pinned else host
+        with span("api.copy_in"):
+            host = torch.empty((rows,) + block.shape[1:], dtype=torch.int32,
+                               pin_memory=pinned)
+            h = host.numpy()
+            np.copyto(h[:n], block, casting="unsafe")
+            h[n:] = fill
+            return host.to(self.device, non_blocking=True) if pinned else host
 
     def _to_host(self, *tensors):
         """Queue copies of device tensors to the host: on the card into
@@ -1353,17 +1385,19 @@ class TorchCodec:
         the tensors themselves.  ``_ready`` waits for them."""
         if self.device.type != "cuda":
             return tensors, None
-        host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                     .copy_(t, non_blocking=True) for t in tensors)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
-        return host, event
+        with span("api.copy_out"):
+            host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                         .copy_(t, non_blocking=True) for t in tensors)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+            return host, event
 
     @staticmethod
     def _ready(host, event) -> list[np.ndarray]:
         """The numpy views of ``_to_host``'s buffers, once copied."""
         if event is not None:
-            event.synchronize()
+            with span("api.ready.sync"):
+                event.synchronize()
         return [t.numpy() for t in host]
 
     def _encode_host(self, pcm, nums):
@@ -1375,22 +1409,29 @@ class TorchCodec:
         S = self.config.frame_length
         nf = pcm.shape[0]
         packets = []
-        pending = None      # (host words and bits, event) of chunk k
-        for off in range(0, nf, self.chunk):
-            block = np.asarray(pcm[off:off + self.chunk])
-            n = block.shape[0]
-            x = self._to_device(block, self.chunk)
-            if nums is None:
-                words, bits = self._encode(x)
-            else:
-                words, bits = self._encode(
-                    x, self._to_device(nums[off:off + n], self.chunk, S))
-            cur = self._to_host(words[:n], bits[:n])
+
+        def serialize(copies):
+            host = self._ready(*copies)
+            with span("api.serdes"):
+                packets.extend(bitpack.words_to_bytes(*host))
+
+        with span("api.encode"):
+            pending = None      # (host words and bits, event) of chunk k
+            for off in range(0, nf, self.chunk):
+                block = np.asarray(pcm[off:off + self.chunk])
+                n = block.shape[0]
+                x = self._to_device(block, self.chunk)
+                if nums is None:
+                    words, bits = self._encode(x)
+                else:
+                    words, bits = self._encode(
+                        x, self._to_device(nums[off:off + n], self.chunk, S))
+                cur = self._to_host(words[:n], bits[:n])
+                if pending is not None:
+                    serialize(pending)
+                pending = cur
             if pending is not None:
-                packets.extend(bitpack.words_to_bytes(*self._ready(*pending)))
-            pending = cur
-        if pending is not None:
-            packets.extend(bitpack.words_to_bytes(*self._ready(*pending)))
+                serialize(pending)
         return packets
 
     def decode_frames_ex(self, packets: list[bytes]
@@ -1416,44 +1457,63 @@ class TorchCodec:
         def dispatch(off):
             blk = packets[off:off + self.chunk]
             n = len(blk)
-            width, over = packet_image_words(cfg, blk)
-            wh = bitpack.bytes_to_words(
-                [b"" if o else p for p, o in zip(blk, over)], width)
+            with span("api.serdes"):
+                width, over = packet_image_words(cfg, blk)
+                wh = bitpack.bytes_to_words(
+                    [b"" if o else p for p, o in zip(blk, over)], width)
             wdev = self._to_device(wh.view(np.int32), self.chunk)
             pcm, err, num = self._decode(wdev)
             return off, n, blk, over, wdev, self._to_host(
                 pcm[:n], err[:n], num[:n])
 
-        offs = list(range(0, nf, self.chunk))
-        pending = dispatch(offs[0]) if offs else None
-        for i in range(len(offs)):
-            off, n, blk, over, wdev, copies = pending
-            pending = dispatch(offs[i + 1]) if i + 1 < len(offs) else None
-            pcm, err, num = self._ready(*copies)
-            out[off:off + n] = pcm
-            nums[off:off + n] = num
-            err = err & ~over
-            # the retry rule and threshold of alacjax's JaxCodec: a few
-            # flagged lanes (corruption) go straight to the oracle; chunk
-            # k's words are still on the card for the retry
-            for retry_taps in fused_decode.LADDER_TAPS:
+        with span("api.decode"):
+            offs = list(range(0, nf, self.chunk))
+            pending = dispatch(offs[0]) if offs else None
+            for i in range(len(offs)):
+                off, n, blk, over, wdev, copies = pending
+                pending = (dispatch(offs[i + 1]) if i + 1 < len(offs)
+                           else None)
+                pcm, err, num = self._ready(*copies)
+                with span("api.unpack"):
+                    out[off:off + n] = pcm
+                    nums[off:off + n] = num
+                    err = err & ~over
+                # the retry rule and threshold of alacjax's JaxCodec: a few
+                # flagged lanes (corruption) go straight to the oracle;
+                # chunk k's words are still on the card for the retry
                 if err.any() and err.sum() * 4 >= n and n >= 64:
-                    pcm_r, err_r, num_r = self._decode(wdev, taps=retry_taps)
-                    fixed = np.nonzero(err & ~err_r[:n].cpu().numpy())[0]
-                    idx = torch.from_numpy(fixed).to(self.device)
-                    out[off + fixed] = pcm_r[idx].cpu().numpy()
-                    nums[off + fixed] = num_r[idx].cpu().numpy()
-                    err[fixed] = False
-            err |= over
-            self.fallback_frames += int(err.sum())
-            if err.any():
-                dec = OracleDecoder(cfg)
-                for j in np.nonzero(err)[0]:
-                    y, got = dec.decode_packet(blk[j])
-                    out[off + j, :, :got] = y[:, :got]
-                    out[off + j, :, got:] = 0
-                    nums[off + j] = got
+                    with span("api.ladder"):
+                        self._ladder(wdev, off, n, err, out, nums)
+                err |= over
+                self.fallback_frames += int(err.sum())
+                if err.any():
+                    with span("api.oracle"):
+                        dec = OracleDecoder(cfg)
+                        for j in np.nonzero(err)[0]:
+                            y, got = dec.decode_packet(blk[j])
+                            out[off + j, :, :got] = y[:, :got]
+                            out[off + j, :, got:] = 0
+                            nums[off + j] = got
         return out, nums
+
+    def _ladder(self, wdev, off: int, n: int, err, out, nums) -> None:
+        """The retry ladder of one chunk: while at least a quarter of its
+        ``n`` lanes are flagged, decode its words ``wdev`` again at the
+        next rung's taps and store the lanes that rung fixes into ``out``
+        and ``nums`` from row ``off``, clearing their ``err``."""
+        def host(t):
+            with span("api.ladder.sync"):
+                return t.cpu().numpy()
+
+        for retry_taps in fused_decode.LADDER_TAPS:
+            if err.any() and err.sum() * 4 >= n:
+                pcm_r, err_r, num_r = self._decode(wdev, taps=retry_taps)
+                fixed = np.nonzero(err & ~host(err_r[:n]))[0]
+                with span("api.ladder.sync"):
+                    idx = torch.from_numpy(fixed).to(self.device)
+                out[off + fixed] = host(pcm_r[idx])
+                nums[off + fixed] = host(num_r[idx])
+                err[fixed] = False
 
     def decode_frames(self, packets: list[bytes]) -> np.ndarray:
         """list of FULL-frame packets -> (nf, C, S) planar int64."""

@@ -9,6 +9,7 @@ import torch
 from ..types import MAX_PREFIX_32
 
 from ..ops import rice
+from ..utils.metrics import readback
 from . import LAUNCHES, expect, lane_vector, launch, on_cuda
 
 N_SLOTS = 2         # csrc/emit.cu's slots per step (emit_slots of any admitted cap)
@@ -39,7 +40,7 @@ def rice_encode_words(res, bit_size, mb0: int, pb: int, kb: int, wb: int,
     else:
         # the kernel's escape token is one append of the 9-bit prefix and
         # the payload: every lane's bit size must respect the cap
-        if int(bit_size.max().item()) > bit_size_cap:
+        if readback(bit_size.max(), "emit.cap") > bit_size_cap:
             raise ValueError(f"a bit size exceeds bit_size_cap="
                              f"{bit_size_cap}")
     bs = lane_vector(bit_size, L, dev, "bit_size")

@@ -11,11 +11,17 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.metrics import span
 from .tutils import I32, I64, wrap_i32
 
 
 def _arg(v, like):
-    return torch.as_tensor(v, dtype=I64, device=like.device)
+    if isinstance(v, torch.Tensor):
+        return torch.as_tensor(v, dtype=I64, device=like.device)
+    # a Python number reaches the card through a pageable copy, which
+    # torch ends with a stream synchronize
+    with span("matrix.scalar.sync"):
+        return torch.as_tensor(v, dtype=I64, device=like.device)
 
 
 def mix(left, right, mixbits, mixres):

@@ -1,9 +1,7 @@
-"""Utilities: structured metrics, logging, profiling annotations (the
-port's copy of alacjax/utils/, names and behaviour unchanged): torch
-profiler stage annotations, per-run structured reports, and a
-dependency-free logger."""
+"""Utilities: the span recorder (``metrics``: ``span``, ``readback``,
+``enable``, ``disable``, ``drain``) and a dependency-free logger."""
 
 from .log import get_logger
-from .metrics import StageTimer, StreamReport, stage_annotation
+from .metrics import disable, drain, enable, readback, span
 
-__all__ = ["StreamReport", "StageTimer", "stage_annotation", "get_logger"]
+__all__ = ["span", "readback", "enable", "disable", "drain", "get_logger"]

@@ -1,95 +1,115 @@
-"""Per-run structured metrics and profiling annotations (the port's
-copy of alacjax/utils/metrics.py).
+"""The port's span recorder: host-clock spans at the stage boundaries of
+the device program (``encode.*``, ``decode.*``) and of the host API
+(``api.*``), kept in memory for the caller to read.
 
-StreamReport aggregates what the reference tracked internally
-(mTotalBytesGenerated / mMaxFrameBytes / mAvgBitRate) plus the
-device-relevant counters: frames/sec, escape-frame rate, compression
-ratio, and per-stage wall-clock shares.
+Off by default.  ``span(name)`` then returns one shared no-op object, at
+the cost of one flag test.  After ``enable()`` each span appends, when it
+closes, ``(start_ns, end_ns, name, parent, call_id, thread_id)``:
+``time.time_ns()`` readings (the Unix clock, which torch.profiler stamps
+its rows with), the index in the list of the span that was open around
+it on the same thread (None for an outermost span), the ordinal of the
+outermost span it sits in (every span of one call or request shares
+it), and the OS thread id.  ``drain()`` returns the list and starts a new
+one; call it when no span is open.  Nothing is written anywhere: the
+caller decides what to do with the spans.
+
+``readback(tensor, site)`` is the one way the device program reads a
+tensor back to the host: ``.tolist()`` inside the span
+``f"{site}.sync"``.  Every other blocking host sync of the port's main
+paths sits in a span whose name ends in ``.sync``, so the syncs of a
+call are its ``*.sync`` spans.
 """
 
 from __future__ import annotations
 
-import contextlib
-import dataclasses
-import json
+import itertools
+import threading
 import time
 
-import torch
+_on = False
+_spans: list = []
+_calls = itertools.count()
+_lock = threading.Lock()
+_local = threading.local()
 
 
-def stage_annotation(name: str):
-    """torch.profiler range for a pipeline stage (mix / predict / rice /
-    pack), named ``alacjax.<name>``: no cost outside a profile, and an
-    NVTX range under torch.autograd.profiler.emit_nvtx."""
-    return torch.profiler.record_function(f"alacjax.{name}")
+class _Off:
+    """The span handed out while the recorder is off."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
 
 
-class StageTimer:
-    """Accumulates wall-clock per named stage (host-side timing)."""
+_OFF = _Off()
 
-    def __init__(self):
-        self.totals: dict[str, float] = {}
 
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.time()
+class _Span:
+    __slots__ = ("name", "spans", "idx", "t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
         try:
-            yield
-        finally:
-            self.totals[name] = self.totals.get(name, 0.0) + time.time() - t0
+            stack = _local.stack
+        except AttributeError:
+            stack = _local.stack = []
+            _local.tid = threading.get_native_id()
+        with _lock:
+            call = stack[-1][1] if stack else next(_calls)
+            self.spans = _spans
+            self.idx = len(_spans)
+            _spans.append(None)
+        stack.append((self.idx, call))
+        self.t0 = time.time_ns()
+        return None
 
-    def shares(self) -> dict[str, float]:
-        total = sum(self.totals.values()) or 1.0
-        return {k: round(v / total, 4) for k, v in self.totals.items()}
+    def __exit__(self, *exc):
+        t1 = time.time_ns()
+        stack = _local.stack
+        _, call = stack.pop()
+        parent = stack[-1][0] if stack else None
+        self.spans[self.idx] = (self.t0, t1, self.name, parent, call,
+                                _local.tid)
+        return False
 
 
-@dataclasses.dataclass
-class StreamReport:
-    """Structured per-run report for one encode or decode stream."""
+def span(name: str):
+    """A context manager around one stage: recorded while the recorder
+    is on, the shared no-op object while it is off."""
+    if not _on:
+        return _OFF
+    return _Span(name)
 
-    frames: int = 0
-    samples: int = 0
-    channels: int = 0
-    bit_depth: int = 0
-    sample_rate: int = 0
-    pcm_bytes: int = 0
-    packet_bytes: int = 0
-    escape_frames: int = 0
-    max_frame_bytes: int = 0
-    seconds: float = 0.0
-    stage_seconds: dict = dataclasses.field(default_factory=dict)
 
-    def add_packet(self, nbytes: int, escaped: bool = False):
-        self.frames += 1
-        self.packet_bytes += nbytes
-        self.max_frame_bytes = max(self.max_frame_bytes, nbytes)
-        if escaped:
-            self.escape_frames += 1
+def readback(tensor, site: str):
+    """``tensor.tolist()`` inside the span ``f"{site}.sync"``: a blocking
+    read of a device tensor, counted where it happens."""
+    with span(site + ".sync"):
+        return tensor.tolist()
 
-    @property
-    def compression_ratio(self) -> float:
-        return self.packet_bytes / self.pcm_bytes if self.pcm_bytes else 0.0
 
-    @property
-    def frames_per_sec(self) -> float:
-        return self.frames / self.seconds if self.seconds else 0.0
+def enable() -> None:
+    """Record spans from now on (process-wide)."""
+    global _on
+    _on = True
 
-    @property
-    def avg_bit_rate(self) -> int:
-        if not self.samples:
-            return 0
-        return int(self.packet_bytes * 8 * self.sample_rate // self.samples)
 
-    def to_dict(self) -> dict:
-        d = dataclasses.asdict(self)
-        d.update(
-            compression_ratio=round(self.compression_ratio, 4),
-            frames_per_sec=round(self.frames_per_sec, 1),
-            avg_bit_rate=self.avg_bit_rate,
-            escape_rate=round(self.escape_frames / self.frames, 4)
-            if self.frames else 0.0,
-        )
-        return d
+def disable() -> None:
+    """Stop recording; spans already recorded stay until ``drain()``."""
+    global _on
+    _on = False
 
-    def to_json(self) -> str:
-        return json.dumps(self.to_dict())
+
+def drain() -> list:
+    """The spans recorded since the last drain, in the order they were
+    opened (a parent before its children); the list starts anew."""
+    global _spans
+    with _lock:
+        out, _spans = _spans, []
+    return out

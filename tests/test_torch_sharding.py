@@ -6,10 +6,9 @@ divide, a share left empty, a decode chunk that climbs the retry
 ladder); roundtrip_step is lossless and sums the packets' bytes across
 the shares; get_codec keys its cache by the device tuple and bounds its
 default by ALACJAX_DEVICES; ``--devices 2`` in the CLI writes the files
-``--devices 1`` writes.  Also the port's copies of alacjax.utils.
+``--devices 1`` writes.  Also the port's logger.
 """
 
-import json
 import os
 import pathlib
 import subprocess
@@ -19,8 +18,6 @@ import numpy as np
 import pytest
 import torch
 
-import alacjax.utils as jutils
-import alacjax_torch.utils as tutils
 from alacjax.oracle import ALACEncoder
 from alacjax.types import AlacConfig
 from alacjax_torch import ShardedCodec, TorchCodec, get_codec
@@ -220,40 +217,8 @@ def test_cli_devices_2_writes_the_files_of_devices_1(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# utils: the port's copies behave as alacjax's
+# utils: the port's logger behaves as alacjax's
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("utils", [jutils, tutils], ids=["alacjax", "port"])
-def test_utils_stream_report_and_stage_timer(utils):
-    def report(mod):
-        r = mod.StreamReport(channels=2, bit_depth=16, sample_rate=44100,
-                             samples=8192, pcm_bytes=8192 * 4, seconds=0.5)
-        r.add_packet(1000)
-        r.add_packet(3000, escaped=True)
-        return r
-
-    d = report(utils).to_dict()
-    assert d == report(jutils).to_dict()
-    assert json.loads(report(utils).to_json()) == json.loads(
-        report(jutils).to_json())
-    assert (d["frames"], d["escape_rate"], d["frames_per_sec"]) == (2, 0.5,
-                                                                   4.0)
-    t = utils.StageTimer()
-    with t.stage("a"):
-        pass
-    with t.stage("b"):
-        pass
-    assert set(t.shares()) == {"a", "b"}
-    assert abs(sum(t.shares().values()) - 1.0) < 0.01
-
-
-def test_stage_annotation_is_a_profiler_range():
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        with tutils.stage_annotation("predict"):
-            torch.ones(4).sum()
-    assert "alacjax.predict" in {e.key for e in prof.key_averages()}
-
-
 def test_get_logger_reads_alacjax_log():
     code = ("from alacjax_torch.utils import get_logger\n"
             "log = get_logger('alacjax_torch.test')\n"
