@@ -27,26 +27,27 @@ Decode dataflow (alacjax.codec.decode_frames_device, chained branch),
 per element: header parse (static offsets for a single-element packet,
 else one window aligned to the element's per-lane start) -> chained
 channel decodes (decode kernel at 8, 16 or 30 taps; channel c+1 starts
-where channel c ends) -> unmix -> shift-byte re-insert -> escape select;
-the next element starts where this one ends.  With ``stacked`` (alacjax's
-ALACJAX_DECODE_STACKED=1, here an argument): the parse and one Rice
-cursor launch per channel but the last chain the starts, then one
-stacked decode launch covers every channel, then each element's unmix,
-shift bytes and escape select.  ``stop_at`` cuts either program at
-alacjax's profiling points (encode "mix", "search", "rice", "assemble";
-decode "params", "scan", "nounesc").
+where channel c ends) -> one pcm kernel launch (unmix, shift-byte
+re-insert, escape select, tail mask) writing the element's channels of
+the call's (B, C, S) output; the next element starts where this one
+ends.  With ``stacked`` (alacjax's ALACJAX_DECODE_STACKED=1, here an
+argument): the parse and one Rice cursor launch per channel but the
+last chain the starts, then one stacked decode launch covers every
+channel, then each element's pcm launch.  ``stop_at`` cuts either
+program at alacjax's profiling points (encode "mix", "search", "rice",
+"assemble"; decode "params", "scan", "nounesc").
 
 Each ``lax.cond`` of the reference is a Python ``if`` on a flag read
 back from the device, one readback for all of the flags known at the
 same point: the encode's after the search (every lane escaped; per
 element, any lane escaped), the decode's after each element's parse
-(every lane and any lane escaped; with the first element, any lane
-partial), through ``utils.metrics.readback``; each stage of the encode,
-the decode and the host API sits in a ``utils.metrics.span`` (README,
-"Tracing").  Tensors live on the codec's device; the kernel
-wrappers launch CUDA kernels for CUDA tensors and run the plain torch
-versions for CPU tensors.  The encoder's word images travel as int32 bit
-patterns (empty keys -1), the small header images as int64.
+(every lane and any lane escaped), through ``utils.metrics.readback``;
+each stage of the encode, the decode and the host API sits in a
+``utils.metrics.span`` (README, "Tracing").  Tensors live on the
+codec's device; the kernel wrappers launch CUDA kernels for CUDA
+tensors and run the plain torch versions for CPU tensors.  The encoder's
+word images travel as int32 bit patterns (empty keys -1), the small
+header images as int64.
 """
 
 from __future__ import annotations
@@ -70,6 +71,7 @@ from .kernels import cost as k_cost
 from .kernels import decode as k_decode
 from .kernels import emit as k_emit
 from .kernels import merge as k_merge
+from .kernels import pcm as k_pcm
 from .kernels import predict as k_predict
 from .ops import bitpack, fused_decode, matrix, predict, rice
 from .ops.tutils import I32, I64, MASK32, as_i32_bits, iota1, sign_extend, u32
@@ -960,30 +962,6 @@ def _decode_params_static(words, is_cpe: bool, max_ord: int = kALACMaxCoefs):
     return params, end, perr
 
 
-def _unescape_fast(words, depth: int, nch: int, S: int, partial):
-    """Escape samples of a single-element packet: the raw block sits at
-    static bit 23 (55 on partial lanes), so a word-shifted view and a
-    constant funnel shift bring it to phase 0 for unpack_fields."""
-    F = nch * S
-    need = (depth * F + 31) // 32 + 2
-    W = words.shape[1]
-    wp = words if W >= need else torch.nn.functional.pad(words, (0, need - W))
-    w0 = torch.where(partial[:, None], wp[:, 1:need], wp[:, :need - 1])
-    al = ((w0[:, :-1] << 23) & MASK32) | (w0[:, 1:] >> 9)
-    f = sign_extend(bitpack.unpack_fields(al, depth, F), depth)
-    return [f[:, ci::nch] for ci in range(nch)]
-
-
-def _unescape_window(words, pos_esc, depth: int, nch: int, S: int):
-    """Escape samples at a per-lane offset (a later element of a
-    multi-element packet): one word window aligned to phase 0, then the
-    same periodic unpack."""
-    F = nch * S
-    seg = bitpack.extract_segment(words, pos_esc, (depth * F + 31) // 32)
-    f = sign_extend(bitpack.unpack_fields(seg, depth, F), depth)
-    return [f[:, ci::nch] for ci in range(nch)]
-
-
 def _parse_element(w, bitpos, num, tag, width: int, config: AlacConfig,
                    S: int, max_ord: int, fast_hdr: bool):
     """Header parse of one element (alacjax.codec.decode_frames_device's
@@ -992,10 +970,10 @@ def _parse_element(w, bitpos, num, tag, width: int, config: AlacConfig,
     first element (None for the first).  A single-element packet is read
     at static offsets; otherwise one window aligned to the element
     carries the same static parse.  Returns a dict with ``esc``,
-    ``partial``, ``num``, ``err``, the per-channel ``params`` (mode, den,
-    pbf, order, coefs), ``pos_esc`` (the raw block of an escape lane),
-    ``pos_shift`` (the shift-byte block), ``rice`` (the first channel's
-    Rice start) and, for a CPE, ``mixbits`` and ``mixres``."""
+    ``num``, ``err``, the per-channel ``params`` (mode, den, pbf, order,
+    coefs), ``pos_esc`` (the raw block of an escape lane), ``pos_shift``
+    (the shift-byte block), ``rice`` (the first channel's Rice start)
+    and, for a CPE, ``mixbits`` and ``mixres``."""
     depth = config.bit_depth
     is_cpe = width == 2
     if fast_hdr:
@@ -1039,7 +1017,7 @@ def _parse_element(w, bitpos, num, tag, width: int, config: AlacConfig,
         # the element sans the partial field, aligned to bit 0
         deep = 39 + 16 + 16 * ((31 + max_ord if is_cpe else max_ord) + 1)
         w_hdr = u32(bitpack.extract_segment(w, pos_esc - 23, deep // 32 + 2))
-    out = dict(esc=esc, partial=partial, num=num, pos_esc=pos_esc)
+    out = dict(esc=esc, num=num, pos_esc=pos_esc)
     if is_cpe:
         mixtok = _sfield(w_hdr, 23, 16)
         out["mixbits"] = torch.where(esc, 0, mixtok >> 8)
@@ -1064,48 +1042,22 @@ def _channel_args(p, ci: int, config: AlacConfig):
         (config.pb * pbf) // 4, coefs, mode, order, den))
 
 
-def _shift_bytes(words, pos_shift, width: int, S: int, bs: int):
-    """The element's shift-byte block: ``width`` channel-interleaved
-    8*bs-bit fields per sample at a per-lane offset -> per-channel (B, S)
-    low bytes."""
-    d = 8 * bs
-    seg = bitpack.extract_segment(words, pos_shift, (width * S * d + 31) // 32)
-    sf = bitpack.unpack_fields(seg, d, width * S).reshape(-1, S, width)
-    return [sf[:, :, ci] for ci in range(width)]
-
-
 DECODE_CUTS = ("params", "scan", "nounesc")   # decode_frames_device stop_at
 
 
-def _element_pcm(words_i32, w, p, recon, width: int, is_cpe: bool,
-                 config: AlacConfig, S: int, fast_hdr: bool, all_esc: bool,
-                 any_esc: bool, unescape: bool = True):
-    """One element's (B, S) channels from its reconstructed streams
-    ``recon``: unmix (CPE), shift-byte re-insert, and the escape select
-    (skipped without ``unescape``, the "nounesc" cut); an all-escape
-    element has no streams."""
-    B = words_i32.shape[0]
-    dev = words_i32.device
+def _element_pcm(pcm, c0: int, words_i32, p, recon, width: int,
+                 config: AlacConfig, S: int, unescape: bool) -> None:
+    """One element's channels ``c0 ..`` of the call's (B, C, S) ``pcm``
+    from its reconstructed streams ``recon`` (None for an element whose
+    every lane escaped) through the pcm kernel: unmix (CPE), shift-byte
+    re-insert, the escape select (with ``unescape``) and the tail mask."""
     depth = config.bit_depth
-    bs = bytes_shifted_for_depth(depth)
-    if all_esc:
-        dec = [torch.zeros((B, S), dtype=I32, device=dev)] * width
-    else:
-        dec = recon
-        if is_cpe:
-            dec = list(matrix.unmix(dec[0], dec[1], p["mixbits"][:, None],
-                                    p["mixres"][:, None]))
-        if bs:
-            shifts = _shift_bytes(words_i32, p["pos_shift"], width, S, bs)
-            dec = [matrix.shift_in(r, sh, bs) for r, sh in zip(dec, shifts)]
-    if any_esc and unescape:
-        esc = p["esc"]
-        raws = (_unescape_fast(w, depth, width, S, p["partial"])
-                if fast_hdr else
-                _unescape_window(words_i32, p["pos_esc"], depth, width, S))
-        dec = [torch.where(esc[:, None], raws[ci].to(I32), dec[ci])
-               for ci in range(width)]
-    return dec
+    with span("decode.pcm"):
+        k_pcm.element_pcm(
+            words_i32, S, width, bytes_shifted_for_depth(depth), depth,
+            p["num"], p["pos_shift"], p["pos_esc"], p["esc"],
+            *(recon or ()), mixbits=p.get("mixbits"), mixres=p.get("mixres"),
+            unescape=unescape, out=pcm, c0=c0)
 
 
 def decode_frames_device(words, config: AlacConfig, num_samples: int,
@@ -1122,8 +1074,9 @@ def decode_frames_device(words, config: AlacConfig, num_samples: int,
     chains the channels' starts with one cursor launch per channel but
     the last (none for an element whose every lane escaped); pass B
     decodes every channel in ONE stacked launch (lane l on packet row
-    l % B, channels in order), then each element's unmix, shift bytes
-    and escape select.  The same pcm, err and num.
+    l % B, channels in order), then each element's pcm launch (unmix,
+    shift bytes, escape select and tail mask).  The same pcm, err and
+    num.
 
     ``stop_at`` cuts the program for profiling (alacjax's cuts; it runs
     the chained program): "params" returns (the first element's
@@ -1160,9 +1113,11 @@ def _decode_frames(words, config: AlacConfig, num_samples: int, taps: int,
     bitpos = torch.zeros((B,), dtype=I64, device=dev)
     err = torch.zeros((B,), dtype=torch.bool, device=dev)
     num = None
-    out_ch = []
+    pcm = torch.empty((B, n_total, S), dtype=I32, device=dev)
+    unescape = stop_at != "nounesc"
+    c0 = 0
     chans, elems = [], []       # stacked: per channel, per element
-    for ei, (tag, width) in enumerate(config.elements):
+    for tag, width in config.elements:
         is_cpe = width == 2
         with span("decode.parse"):
             p = _parse_element(w, bitpos, num, tag, width, config, S,
@@ -1173,14 +1128,9 @@ def _decode_frames(words, config: AlacConfig, num_samples: int, taps: int,
         bitpos = p["rice"]
         if stop_at == "params":
             return p["params"], (bitpos, err)
-        # one readback per element; the packet's sample count is the
-        # first element's, so whether any lane is partial is known here
-        flags = [esc.all(), esc.any()] + ([(num < S).any()] if ei == 0
-                                          else [])
-        all_esc, any_esc, *first = readback(torch.stack(flags),
-                                            "decode.flags")
-        if first:
-            any_partial = first[0]
+        # one readback per element
+        all_esc, any_esc = readback(torch.stack([esc.all(), esc.any()]),
+                                    "decode.flags")
 
         if stacked:
             # pass A: chain the channel starts with the cursor
@@ -1196,7 +1146,7 @@ def _decode_frames(words, config: AlacConfig, num_samples: int, taps: int,
                             num=num_i32)
                         err = err | (~esc & cerr)
                         bitpos = torch.where(esc, bitpos, end.to(I64))
-            elems.append((p, width, is_cpe, all_esc, any_esc))
+            elems.append((p, width, all_esc, any_esc))
         else:
             with span("decode.scan"):
                 recon = None
@@ -1220,18 +1170,16 @@ def _decode_frames(words, config: AlacConfig, num_samples: int, taps: int,
                     recon = [torch.zeros((B, S), dtype=I32, device=dev)
                              ] * width
                 return recon, (bitpos, err)
-            with span("decode.pcm"):
-                out_ch.extend(_element_pcm(
-                    words_i32, w, p, recon, width, is_cpe, config, S,
-                    fast_hdr, all_esc, any_esc,
-                    unescape=stop_at != "nounesc"))
+            _element_pcm(pcm, c0, words_i32, p, recon, width, config, S,
+                         unescape and any_esc)
+            c0 += width
         bitpos = torch.where(esc, p["pos_esc"] + width * depth * num, bitpos)
 
     if stacked:
         # pass B: every channel in one stacked launch
         with span("decode.scan"):
             samples_all = None
-            if not all(e[3] for e in elems):
+            if not all(e[2] for e in elems):
                 def cat(i):
                     return torch.cat([c[i] for c in chans]).contiguous()
                 cbs = [c[1] for c in chans]
@@ -1242,23 +1190,14 @@ def _decode_frames(words, config: AlacConfig, num_samples: int, taps: int,
                     num=_tile_lanes(num, n_total), taps=taps,
                     chanbits_max=max(cbs))
                 err = err | (~cat(2) & rerr).reshape(n_total, B).any(dim=0)
-        ci0 = 0
-        for p, width, is_cpe, all_esc, any_esc in elems:
+        for p, width, all_esc, any_esc in elems:
             recon = (None if all_esc else
-                     [samples_all[(ci0 + ci) * B:(ci0 + ci + 1) * B]
+                     [samples_all[(c0 + ci) * B:(c0 + ci + 1) * B]
                       for ci in range(width)])
-            ci0 += width
-            with span("decode.pcm"):
-                out_ch.extend(_element_pcm(words_i32, w, p, recon, width,
-                                           is_cpe, config, S, fast_hdr,
-                                           all_esc, any_esc))
-
-    with span("decode.pcm"):
-        pcm = torch.stack(out_ch, dim=1)
-        if any_partial:
-            pcm = torch.where(iota1(S, device=dev)[None, None, :]
-                              < num[:, None, None], pcm, 0)
-        return pcm.to(I32), err, num.to(I32)
+            _element_pcm(pcm, c0, words_i32, p, recon, width, config, S,
+                         any_esc)
+            c0 += width
+    return pcm, err, num.to(I32)
 
 
 # ---------------------------------------------------------------------------

@@ -227,6 +227,9 @@ REPLACES = {
     # raw mode of alacjax's decode_channel behind rice_decode
     "decode_cursor": "alacjax/ops/fused_decode.py:337",
     "decode_raw": "alacjax/ops/rice.py:427",
+    # and the decode's per-element unmix, shift_in and escape select, then
+    # the stack of the channels and the tail mask (XLA glue in alacjax)
+    "pcm": "alacjax/codec.py:1336",
 }
 SOURCES = {name: f"alacjax_torch/csrc/{name}.cu" for name in REPLACES}
 for _name in ("decode_hi", "decode_cursor", "decode_raw"):
@@ -246,21 +249,22 @@ WRAPPERS = (
      "predict"),
     ("alacjax_torch.kernels.predict", "rice_cost", "plain_rice_cost",
      "rice_cost"),
+    ("alacjax_torch.kernels.pcm", "element_pcm", "plain", "pcm"),
 )
 PATH_KERNELS = {         # the kernels each path must launch
-    "phase 4": ("cost", "emit", "merge", "decode"),
-    "phase 5": ("decode",),
-    "phase 6": ("decode", "decode_hi"),
+    "phase 4": ("cost", "emit", "merge", "decode", "pcm"),
+    "phase 5": ("decode", "pcm"),
+    "phase 6": ("decode", "decode_hi", "pcm"),
     "phase 7": ("cost", "emit", "merge"),
     "phase 8": ("predict", "rice_cost", "emit", "merge"),
-    "phase 9": ("cost", "emit", "merge", "decode"),
-    "phase 10": ("cost", "emit", "merge", "decode"),
-    "phase 11": ("cost", "emit", "merge", "decode"),
-    "phase 12": ("decode", "decode_cursor"),
+    "phase 9": ("cost", "emit", "merge", "decode", "pcm"),
+    "phase 10": ("cost", "emit", "merge", "decode", "pcm"),
+    "phase 11": ("cost", "emit", "merge", "decode", "pcm"),
+    "phase 12": ("decode", "decode_cursor", "pcm"),
     "phase 12 raw": ("decode_raw",),
-    "phase 13": ("cost", "emit", "merge", "decode", "decode_hi"),
-    "phase 14": ("cost", "emit", "merge", "decode"),
-    "phase 14 bench": ("cost", "emit", "merge", "decode"),
+    "phase 13": ("cost", "emit", "merge", "decode", "decode_hi", "pcm"),
+    "phase 14": ("cost", "emit", "merge", "decode", "pcm"),
+    "phase 14 bench": ("cost", "emit", "merge", "decode", "pcm"),
 }
 HBM_BYTES_PER_S = 3.35e12    # one H100 SXM's device memory rate
 # Lane operations one Hopper SM issues per clock: four schedulers, each
@@ -432,6 +436,8 @@ def work(call, got, counts):
     moved = nbytes(list(args) + list(kwargs.values())) + nbytes(outs)
     if name == "merge":
         return moved, 0, 0
+    if name == "pcm":
+        return pcm_bytes(wrapper, args, kwargs), 0, nbytes(outs) // 4
     a = inspect.signature(wrapper).bind(*args, **kwargs)
     a.apply_defaults()
     a = a.arguments
@@ -487,6 +493,25 @@ def work(call, got, counts):
         ops += (per * coded + RICE_IDLE * (machines * n - coded)
                 + (machines - 1) * DIFF_STAGE * n)
     return moved, ops, L * S
+
+
+def pcm_bytes(wrapper, args, kwargs) -> int:
+    """The bytes a pcm call must move: per output sample its store (4),
+    then on an escape lane its escape sample (depth bits), elsewhere its
+    reconstructed sample (4) and shift bits (bs) where the element has
+    streams; each per-lane vector once.  The word image counts for the
+    bits read, not its width."""
+    import inspect
+    a = inspect.signature(wrapper).bind(*args, **kwargs)
+    a.apply_defaults()
+    a = a.arguments
+    B, S, width = a["words"].shape[0], a["num_samples"], a["width"]
+    n_esc = int(a["esc"].sum().item()) if a["unescape"] else 0
+    stream = 4 + a["bs"] if a["r0"] is not None else 0
+    lanes = nbytes([a[k] for k in ("num", "pos_shift", "pos_esc", "esc",
+                                   "mixbits", "mixres")])
+    return (width * S * (4 * B + stream * (B - n_esc))
+            + n_esc * width * S * a["depth"] // 8 + lanes)
 
 
 def timed(fn, reps: int):
@@ -560,7 +585,10 @@ def recording(calls, keep=None):
             name = _key or _mod.counter(
                 kwargs.get("taps", _mod.fused_decode.TAPS),
                 kwargs.get("raw", False))
-            call = (name, _fn, getattr(_mod, _plain), args, kwargs)
+            # the pcm kernel writes into the caller's output: its call is
+            # kept without it, so a replay returns a tensor of its own
+            kept = {k: v for k, v in kwargs.items() if k not in ("out", "c0")}
+            call = (name, _fn, getattr(_mod, _plain), args, kept)
             call = call if keep is None else keep(call)
             if call is not None:
                 calls.append(call)
@@ -595,6 +623,8 @@ def signature(call):
         return ("lane", v.dim())
     if name in DECODES:
         head = (name, ("lanes per row", args[1].shape[0] // args[0].shape[0]))
+    elif name == "pcm":
+        head = (name, ("samples", args[1]))
     else:
         head = (name, tuple(args[0].shape[1:]))
     return (head + tuple(map(part, args[1:]))
@@ -684,6 +714,12 @@ def describe(name: str, args, kwargs) -> str:
             parts.append("coefs0 per order")
     elif name in ("emit", "rice_cost"):
         parts = [f"bit_size {v(args[1])}"]
+    elif name == "pcm":
+        parts = [f"width {args[2]} bs {args[3]} depth {args[4]}"]
+        if len(args) < 10 or args[9] is None:
+            parts.append("no streams")
+        if kwargs.get("unescape", True):
+            parts.append("escape select")
     elif name in DECODES:
         parts = ([f"taps {kwargs['taps']}"] if name in ("decode", "decode_hi")
                  else [])
@@ -1152,7 +1188,8 @@ def retry_ladder(cfg, pcm, packets, counts, main4):
         t0 = time.perf_counter()
         out, nums = codec.decode_frames_ex(packets)
         dec_s = time.perf_counter() - t0
-    taps = sorted({c[4].get("taps") for c in calls})
+    taps = sorted({c[4].get("taps") for c in calls
+                   if c[0] in ("decode", "decode_hi")})
     if taps != [8, 16, 30]:
         fail(f"phase 6: the ladder ran taps {taps}, not [8, 16, 30]")
     if codec.fallback_frames:

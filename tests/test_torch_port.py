@@ -182,7 +182,7 @@ def test_cpu_tensors_take_the_plain_version(rng):
         assert torch.equal(g, w)
     assert kernels.LAUNCHES == dict.fromkeys(
         ("cost", "emit", "merge", "decode", "decode_hi", "decode_cursor",
-         "decode_raw", "predict", "rice_cost"), 0)
+         "decode_raw", "predict", "rice_cost", "pcm"), 0)
 
 
 def test_other_devices_raise_instead_of_falling_back(rng):

@@ -63,19 +63,20 @@ def encode_tree(channels: int, cpes: int, assemble=()):
 ENCODE = encode_tree(2, 1)
 
 
-def decode_tree(widths, stacked: bool, shifted: bool = False):
+def decode_tree(widths, stacked: bool):
     """Per element (of ``widths`` channels each) its parse, flags
     readback and scan; chained, its pcm right after; stacked, pass B's
-    scan and then every element's pcm; last the stack of the channels.
-    With shift bytes, each channel's ``shift_in`` takes an int."""
+    scan and then every element's pcm.  The pcm kernel writes the call's
+    output, so nothing follows; its shift bytes take no int argument, so
+    no ``matrix.scalar.sync`` either."""
     per = [leaf("decode.parse"), leaf("decode.flags.sync"),
            leaf("decode.scan")]
-    pcm = [("decode.pcm", [SCALAR] * w if shifted else []) for w in widths]
+    pcm = [leaf("decode.pcm")] * len(widths)
     if stacked:
         kids = per * len(widths) + [leaf("decode.scan")] + pcm
     else:
         kids = [k for p in pcm for k in per + [p]]
-    return ("decode", kids + [leaf("decode.pcm")])
+    return ("decode", kids)
 
 
 def tree(spans):
@@ -182,8 +183,7 @@ def test_decode_tree(recorder, cfg, stacked):
     assert (out.numpy() == pcm).all() and not err.any()
     spans = recorder.drain()
     widths = [w for _, w in cfg.elements]
-    assert tree(spans) == [decode_tree(widths, stacked,
-                                       shifted=cfg.bit_depth > 16)]
+    assert tree(spans) == [decode_tree(widths, stacked)]
     assert sum(s[2] == "decode.flags.sync" for s in spans) == len(widths)
     assert {s[4] for s in spans} == {spans[0][4]}
 
