@@ -24,8 +24,9 @@ with ``predict_legacy``, with the standalone predictor kernel followed
 by the Rice cost kernel (alacjax's ALACJAX_PALLAS_PREDICT_LEGACY=1).
 
 Decode dataflow (alacjax.codec.decode_frames_device, chained branch),
-per element: header parse (static offsets for a single-element packet,
-else one window aligned to the element's per-lane start) -> chained
+per element: one parse kernel launch (header, partial-frame field, mix
+token and every channel's params, read at each lane's element start
+from the int32 image; the first element's at bit 0) -> chained
 channel decodes (decode kernel at 8, 16 or 30 taps; channel c+1 starts
 where channel c ends) -> one pcm kernel launch (unmix, shift-byte
 re-insert, escape select, tail mask) writing the element's channels of
@@ -64,17 +65,19 @@ from .oracle.encoder import (
 )
 from .types import (
     DENSHIFT_DEFAULT, MAX_DATATYPE_BITS_16, MAX_PREFIX_16, MAX_PREFIX_32,
-    AlacConfig, AlacParamError, ElementTag, kALACMaxCoefs,
+    AlacConfig, AlacParamError, kALACMaxCoefs,
 )
 
 from .kernels import cost as k_cost
 from .kernels import decode as k_decode
 from .kernels import emit as k_emit
 from .kernels import merge as k_merge
+from .kernels import parse as k_parse
 from .kernels import pcm as k_pcm
 from .kernels import predict as k_predict
 from .ops import bitpack, fused_decode, matrix, predict, rice
-from .ops.tutils import I32, I64, MASK32, as_i32_bits, iota1, sign_extend, u32
+from .ops import parse as plain_parse
+from .ops.tutils import I32, I64, MASK32, as_i32_bits, iota1, u32
 from .state import init_coefs_batched
 from .utils.metrics import readback, span
 
@@ -907,141 +910,6 @@ def encode_streams(pcm: np.ndarray, config: AlacConfig,
 # ---------------------------------------------------------------------------
 # decode
 # ---------------------------------------------------------------------------
-def _sfield(words, off: int, n: int):
-    """(B,) n-bit field at a STATIC bit offset of a u32 (int64) image."""
-    i, ph = off >> 5, off & 31
-    a = words[:, i]
-    if ph + n > 32:
-        a = ((a << ph) & MASK32) | (words[:, i + 1] >> (32 - ph))
-        return a >> (32 - n)
-    return (a >> (32 - ph - n)) & ((1 << n) - 1)
-
-
-def _parse_ph(ph, max_ord: int = kALACMaxCoefs):
-    """Split a 16-bit channel-param header into (mode, den, pbf, order)."""
-    mode = (ph >> 12) & 0xF
-    den = (ph >> 8) & 0xF
-    pbf = (ph >> 5) & 0x7
-    order = ph & 0x1F
-    perr = ((order > max_ord) & (order != 31)) | (
-        (den == 0) & (order != 0) & (order != 31))
-    return (mode, den, pbf, order), perr
-
-
-def _decode_params_static(words, is_cpe: bool, max_ord: int = kALACMaxCoefs):
-    """Header/param parse on a bit-0-aligned element view at static
-    offsets; channel 1's fields sit at an offset set by order0, read from
-    a 16-bit-stride field table.  Returns (params, end bits relative to
-    the element start sans the partial numSamples field, err)."""
-    c_ph0 = 23 + 16
-    deep = c_ph0 + 16 + 16 * ((31 + max_ord if is_cpe else max_ord) + 1)
-    need = deep // 32 + 2
-    if words.shape[1] < need:
-        words = torch.nn.functional.pad(words, (0, need - words.shape[1]))
-    ph0 = _sfield(words, c_ph0, 16)
-    (mode0, den0, pbf0, order0), perr = _parse_ph(ph0, max_ord)
-    coefs0 = sign_extend(torch.stack(
-        [_sfield(words, c_ph0 + 16 + 16 * j, 16) for j in range(max_ord)],
-        dim=1), 16)
-    params = [(mode0, den0, pbf0, order0, coefs0)]
-    end = c_ph0 + 16 + 16 * order0
-    if is_cpe:
-        H = torch.stack([_sfield(words, c_ph0 + 16 + 16 * m, 16)
-                         for m in range(31 + 1 + max_ord + 1)], dim=1)
-        # orders outside 0..max_ord and 31 read as order 0 (those lanes
-        # are flagged by perr), as the reference's select does
-        legal = (order0 <= max_ord) | (order0 == 31)
-        o_sel = torch.where(legal, order0, 0)
-        ph1 = torch.gather(H, 1, o_sel[:, None])[:, 0]
-        (mode1, den1, pbf1, order1), perr1 = _parse_ph(ph1, max_ord)
-        perr = perr | perr1
-        idx = o_sel[:, None] + 1 + iota1(max_ord, device=H.device)[None, :]
-        coefs1 = sign_extend(torch.gather(H, 1, idx), 16)
-        params.append((mode1, den1, pbf1, order1, coefs1))
-        end = end + 16 + 16 * order1
-    return params, end, perr
-
-
-def _parse_element(w, bitpos, num, tag, width: int, config: AlacConfig,
-                   S: int, max_ord: int, fast_hdr: bool):
-    """Header parse of one element (alacjax.codec.decode_frames_device's
-    per-element loop): ``w`` is the (B, W) u32 image, ``bitpos`` the
-    per-lane element start, ``num`` the frame length of the packet's
-    first element (None for the first).  A single-element packet is read
-    at static offsets; otherwise one window aligned to the element
-    carries the same static parse.  Returns a dict with ``esc``,
-    ``num``, ``err``, the per-channel ``params`` (mode, den, pbf, order,
-    coefs), ``pos_esc`` (the raw block of an escape lane), ``pos_shift``
-    (the shift-byte block), ``rice`` (the first channel's Rice start)
-    and, for a CPE, ``mixbits`` and ``mixres``."""
-    depth = config.bit_depth
-    is_cpe = width == 2
-    if fast_hdr:
-        hdr = _sfield(w, 0, 23)
-        nsf = _sfield(w, 23, 32)
-    else:
-        hdr = fused_decode._read_bits(w, bitpos, 23)
-        nsf = fused_decode._read_bits(w, bitpos + 23, 32)
-    rtag = hdr >> 20
-    unused = (hdr >> 4) & 0xFFF
-    partial = ((hdr >> 3) & 1) == 1
-    bs_f = (hdr >> 1) & 3
-    esc = (hdr & 1) == 1
-    bs = bytes_shifted_for_depth(depth)
-    # a mono slot takes an SCE or an LFE tag, as the oracle and the
-    # reference decoder do (FFmpeg writes an SCE for 5.1's LFE)
-    tag_ok = (((rtag == int(ElementTag.SCE)) | (rtag == int(ElementTag.LFE)))
-              if width == 1 else rtag == int(tag))
-    err = (~tag_ok | (unused != 0)
-           | (~esc & (bs_f != bs)) | (esc & (bs_f != 0)))
-
-    # partial (tail) frames: 32-bit numSamples right after the header;
-    # the elements of one packet must agree on it
-    bad_num = partial & ((nsf == 0) | (nsf > S))
-    num_el = torch.where(partial & ~bad_num, nsf, S)
-    err = err | bad_num
-    if num is None:
-        num = num_el
-    else:
-        err = err | (num_el != num)
-    pos_esc = bitpos + 23 + torch.where(partial, 32, 0)
-
-    if fast_hdr:
-        # partial lanes' fields sit exactly one word later
-        ncol = 61
-        wpad = (w if w.shape[1] >= ncol + 1
-                else torch.nn.functional.pad(w, (0, ncol + 1 - w.shape[1])))
-        w_hdr = torch.where(partial[:, None], wpad[:, 1:ncol + 1],
-                            wpad[:, :ncol])
-    else:
-        # the element sans the partial field, aligned to bit 0
-        deep = 39 + 16 + 16 * ((31 + max_ord if is_cpe else max_ord) + 1)
-        w_hdr = u32(bitpack.extract_segment(w, pos_esc - 23, deep // 32 + 2))
-    out = dict(esc=esc, num=num, pos_esc=pos_esc)
-    if is_cpe:
-        mixtok = _sfield(w_hdr, 23, 16)
-        out["mixbits"] = torch.where(esc, 0, mixtok >> 8)
-        out["mixres"] = torch.where(esc, 0, sign_extend(mixtok & 0xFF, 8))
-    params, end_rel, perr = _decode_params_static(w_hdr, is_cpe, max_ord)
-    out["params"] = params
-    out["err"] = err | (~esc & perr)
-    pos_shift = torch.where(esc, pos_esc, pos_esc - 23 + end_rel)
-    out["pos_shift"] = pos_shift
-    out["rice"] = pos_shift + torch.where(esc, 0, width * 8 * bs * num)
-    return out
-
-
-def _channel_args(p, ci: int, config: AlacConfig):
-    """Per-lane decode-kernel arguments of channel ``ci`` from
-    _parse_element's result, as int32 tensors: (pb, coefs0, mode, order,
-    denshift).  Escape lanes carry garbage header fields; their order is
-    normalized to 0 so they cannot flag the walk's tap bound."""
-    mode, den, pbf, order, coefs = p["params"][ci]
-    order = torch.where(p["esc"], 0, order)
-    return tuple(a.to(I32).contiguous() for a in (
-        (config.pb * pbf) // 4, coefs, mode, order, den))
-
-
 DECODE_CUTS = ("params", "scan", "nounesc")   # decode_frames_device stop_at
 
 
@@ -1055,9 +923,9 @@ def _element_pcm(pcm, c0: int, words_i32, p, recon, width: int,
     with span("decode.pcm"):
         k_pcm.element_pcm(
             words_i32, S, width, bytes_shifted_for_depth(depth), depth,
-            p["num"], p["pos_shift"], p["pos_esc"], p["esc"],
-            *(recon or ()), mixbits=p.get("mixbits"), mixres=p.get("mixres"),
-            unescape=unescape, out=pcm, c0=c0)
+            p.num, p.pos_shift, p.pos_esc, p.esc, *(recon or ()),
+            mixbits=p.mixbits, mixres=p.mixres, unescape=unescape, out=pcm,
+            c0=c0)
 
 
 def decode_frames_device(words, config: AlacConfig, num_samples: int,
@@ -1106,46 +974,45 @@ def _decode_frames(words, config: AlacConfig, num_samples: int, taps: int,
     bs = bytes_shifted_for_depth(depth)
     # the parse accepts orders up to the walk's width, never below 16
     max_ord = max(kALACMaxCoefs, taps)
-    fast_hdr = len(config.elements) == 1
     n_total = sum(width for _, width in config.elements)
     words_i32 = words.to(I32).contiguous()
-    w = u32(words_i32)
-    bitpos = torch.zeros((B,), dtype=I64, device=dev)
-    err = torch.zeros((B,), dtype=torch.bool, device=dev)
-    num = None
+    # per-lane int32 start bits (None: the first element's, bit 0), error
+    # flags and frame lengths, each set from the first element's parse on
+    bitpos = err = num = None
     pcm = torch.empty((B, n_total, S), dtype=I32, device=dev)
     unescape = stop_at != "nounesc"
     c0 = 0
     chans, elems = [], []       # stacked: per channel, per element
     for tag, width in config.elements:
+        if stop_at == "params":
+            # alacjax's cut reads the fields the decode does not keep
+            # (pbf, an escape lane's order): the plain parse's
+            return plain_parse.params_cut(words_i32, tag, width, config, S,
+                                          max_ord)
         is_cpe = width == 2
         with span("decode.parse"):
-            p = _parse_element(w, bitpos, num, tag, width, config, S,
-                               max_ord, fast_hdr)
-            esc, num = p["esc"], p["num"]
-            err = err | p["err"]
+            p = k_parse.parse_element(words_i32, bitpos, num, tag, width,
+                                      config, S, max_ord)
+            esc, num = p.esc, p.num
+            err = p.err if err is None else err | p.err
         chanbits = depth - 8 * bs + (1 if is_cpe else 0)
-        bitpos = p["rice"]
-        if stop_at == "params":
-            return p["params"], (bitpos, err)
-        # one readback per element
-        all_esc, any_esc = readback(torch.stack([esc.all(), esc.any()]),
-                                    "decode.flags")
+        bitpos = p.rice
+        # one readback per element: a lane coded, a lane escaped
+        coded, escaped = readback(p.flags, "decode.flags")
+        all_esc, any_esc = not coded, bool(escaped)
 
         if stacked:
             # pass A: chain the channel starts with the cursor
             with span("decode.scan"):
-                num_i32 = num.to(I32).contiguous()
                 for ci in range(width):
-                    args = _channel_args(p, ci, config)
+                    args = p.args(ci)
                     chans.append((bitpos, chanbits, esc) + args)
                     if len(chans) < n_total and not all_esc:
                         end, cerr = k_decode.cursor_scan(
-                            words_i32, bitpos.to(I32).contiguous(), S,
-                            chanbits, config.mb, args[0], kb, wb, skip=esc,
-                            num=num_i32)
+                            words_i32, bitpos, S, chanbits, config.mb,
+                            args[0], kb, wb, skip=esc, num=num)
                         err = err | (~esc & cerr)
-                        bitpos = torch.where(esc, bitpos, end.to(I64))
+                        bitpos = torch.where(esc, bitpos, end)
             elems.append((p, width, all_esc, any_esc))
         else:
             with span("decode.scan"):
@@ -1154,15 +1021,13 @@ def _decode_frames(words, config: AlacConfig, num_samples: int, taps: int,
                     # chained channel scans: channel c+1 starts where
                     # channel c ends
                     recon = []
-                    num_i32 = num.to(I32).contiguous()
                     for ci in range(width):
-                        pb, coefs, mode, order, den = _channel_args(p, ci,
-                                                                    config)
+                        pb, coefs, mode, order, den = p.args(ci)
                         samples, bitpos_n, rerr = k_decode.decode_channel(
-                            words_i32, bitpos.to(I32).contiguous(), S,
-                            chanbits, config.mb, pb, kb, wb, coefs, mode,
-                            order, den, num=num_i32, taps=taps)
-                        bitpos = torch.where(esc, bitpos, bitpos_n.to(I64))
+                            words_i32, bitpos, S, chanbits, config.mb, pb,
+                            kb, wb, coefs, mode, order, den, num=num,
+                            taps=taps)
+                        bitpos = torch.where(esc, bitpos, bitpos_n)
                         err = err | (~esc & rerr)
                         recon.append(samples)
             if stop_at == "scan":
@@ -1173,7 +1038,7 @@ def _decode_frames(words, config: AlacConfig, num_samples: int, taps: int,
             _element_pcm(pcm, c0, words_i32, p, recon, width, config, S,
                          unescape and any_esc)
             c0 += width
-        bitpos = torch.where(esc, p["pos_esc"] + width * depth * num, bitpos)
+        bitpos = torch.where(esc, p.pos_esc + width * depth * num, bitpos)
 
     if stacked:
         # pass B: every channel in one stacked launch
@@ -1184,7 +1049,7 @@ def _decode_frames(words, config: AlacConfig, num_samples: int, taps: int,
                     return torch.cat([c[i] for c in chans]).contiguous()
                 cbs = [c[1] for c in chans]
                 samples_all, _, rerr = k_decode.decode_channel(
-                    words_i32, cat(0).to(I32), S,
+                    words_i32, cat(0), S,
                     _lane_chanbits(cbs, B, dev), config.mb, cat(3), kb, wb,
                     cat(4), cat(5), cat(6), cat(7),
                     num=_tile_lanes(num, n_total), taps=taps,
@@ -1197,7 +1062,7 @@ def _decode_frames(words, config: AlacConfig, num_samples: int, taps: int,
             _element_pcm(pcm, c0, words_i32, p, recon, width, config, S,
                          any_esc)
             c0 += width
-    return pcm, err, num.to(I32)
+    return pcm, err, num
 
 
 # ---------------------------------------------------------------------------

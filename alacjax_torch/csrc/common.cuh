@@ -51,6 +51,21 @@ __device__ __forceinline__ int sext_sh(int x, unsigned sh) {
 
 __device__ __forceinline__ int sign_of(int x) { return (x > 0) - (x < 0); }
 
+// Word i of a (B, W) word image's row as bitpack.extract_segment reads
+// it: 0 past W, word 0 before 0.
+__device__ __forceinline__ unsigned image_word(const unsigned* row,
+                                               long long i, int W) {
+    return i < W ? __ldg(row + (i < 0 ? 0 : i)) : 0u;
+}
+
+// The n-bit field (1 <= n <= 32) at bit q of a row of the image.
+__device__ __forceinline__ unsigned image_field(const unsigned* row,
+                                                long long q, int n, int W) {
+    const long long i = q >> 5;
+    return __funnelshift_l(image_word(row, i + 1, W), image_word(row, i, W),
+                           (unsigned)(q & 31)) >> (32 - n);
+}
+
 // c ? a : b, opaque to the compiler.  A chain of plain selects over an
 // array's constant indices (or over two fields of the kernel's argument
 // struct) may be folded into one dynamically indexed load, which moves

@@ -27,8 +27,8 @@
 // field of the word image is two words and a funnel shift.  Either way a
 // word past W reads 0 and one before 0 reads word 0, as
 // bitpack.extract_segment does; an escape sample (rare) is read field by
-// field.  The per-lane arguments stay the parse's int64 and bool
-// tensors, so the codec converts nothing.
+// field.  The per-lane arguments are the parse kernel's int32 rows and
+// bool flags (csrc/parse.cu), so the codec converts nothing.
 #include "common.cuh"
 
 namespace alac {
@@ -39,28 +39,15 @@ struct PcmArgs {
     const unsigned* words;              // (B, W) word image
     const int* r0;                      // (B, S) streams, or nullptr
     const int* r1;                      //   (a CPE's second)
-    const long long* mixbits;           // (B,) a CPE's, else nullptr
-    const long long* mixres;
-    const long long* pos_shift;         // (B,) bit of the shift-byte block
-    const long long* pos_esc;           // (B,) bit of the escape samples
+    const int* mixbits;                 // (B,) a CPE's, else nullptr
+    const int* mixres;
+    const int* pos_shift;               // (B,) bit of the shift-byte block
+    const int* pos_esc;                 // (B,) bit of the escape samples
     const unsigned char* esc;           // (B,) escape lanes
-    const long long* num;               // (B,) samples per lane
+    const int* num;                     // (B,) samples per lane
     int* out;                           // (B, C, S)
     int W, S, C, c0, bs, depth, unescape, sblocks;
 };
-
-__device__ __forceinline__ unsigned image_word(const unsigned* row,
-                                               long long i, int W) {
-    return i < W ? __ldg(row + (i < 0 ? 0 : i)) : 0u;
-}
-
-// The n-bit field (1 <= n <= 32) at bit q of a row of the image.
-__device__ __forceinline__ unsigned image_field(const unsigned* row,
-                                                long long q, int n, int W) {
-    const long long i = q >> 5;
-    return __funnelshift_l(image_word(row, i + 1, W), image_word(row, i, W),
-                           (unsigned)(q & 31)) >> (32 - n);
-}
 
 template <int V>
 __device__ __forceinline__ void load_v(int (&x)[V], const int* p) {
@@ -108,13 +95,13 @@ __global__ void __launch_bounds__(PCM_THREADS) pcm_kernel(const PcmArgs a) {
             // matrix.unmix: r = u - ((mixres * v) >> mixbits), l = v + r;
             // a shift past 31 (or below 0) fills with the sign, as the
             // plain version's int64 shift of an int32 value does
-            const long long mr = a.mixres[b];
+            const int mr = a.mixres[b];
             if (mr != 0) {
-                const unsigned long long mb = (unsigned long long)a.mixbits[b];
+                const unsigned mb = (unsigned)a.mixbits[b];
                 const int sh = mb > 31 ? 31 : (int)mb;
 #pragma unroll
                 for (int v = 0; v < V; ++v) {
-                    const int r = wsub(x[0][v], wmul((int)mr, x[1][v]) >> sh);
+                    const int r = wsub(x[0][v], wmul(mr, x[1][v]) >> sh);
                     x[0][v] = wadd(x[1][v], r);
                     x[1][v] = r;
                 }
@@ -151,7 +138,7 @@ __global__ void __launch_bounds__(PCM_THREADS) pcm_kernel(const PcmArgs a) {
             }
         }
     }
-    const long long n = a.num[b];
+    const int n = a.num[b];
 #pragma unroll
     for (int v = 0; v < V; ++v) {
         if (s0 + v >= n) {
@@ -192,9 +179,9 @@ inline bool aligned16(const void* p) { return ((size_t)p & 15) == 0; }
 // element whose every lane escaped; mixbits and mixres are read for width
 // 2 alone; bs is the bytes shifted (0..2), depth the escape samples' bits.
 extern "C" int alac_pcm(const int* words, const int* r0, const int* r1,
-                        const long long* mixbits, const long long* mixres,
-                        const long long* pos_shift, const long long* pos_esc,
-                        const unsigned char* esc, const long long* num,
+                        const int* mixbits, const int* mixres,
+                        const int* pos_shift, const int* pos_esc,
+                        const unsigned char* esc, const int* num,
                         int* out, int B, int W, int S, int C, int c0,
                         int width, int bs, int depth, int unescape,
                         void* stream) {

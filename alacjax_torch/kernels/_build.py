@@ -42,6 +42,7 @@ SIGNATURES = {
     "alac_decode": [_P] * 5 + [_I] + [_P] * 8 + [_I] * 6 + [_U, _I, _U, _P],
     "alac_decode_cursor": [_P] * 9 + [_I] * 5 + [_U, _I, _U, _P],
     "alac_decode_raw": [_P] * 9 + [_I] * 5 + [_U, _I, _U, _P],
+    "alac_parse": [_P] * 7 + [_I] * 8 + [_P],
     "alac_pcm": [_P] * 10 + [_I] * 9 + [_P],
 }
 

@@ -11,7 +11,6 @@ from __future__ import annotations
 import torch
 
 from ..ops import pcm
-from ..ops.tutils import I64
 from . import LAUNCHES, expect, launch, on_cuda
 
 plain = pcm.element_pcm                 # the plain version, same signature
@@ -33,13 +32,13 @@ def _check(words, S, width, bs, depth, num, pos_shift, pos_esc, esc, r0,
         raise ValueError(f"depth must be in 1..32, got {depth}")
     for name, t in (("num", num), ("pos_shift", pos_shift),
                     ("pos_esc", pos_esc)):
-        expect(t, name, (B,), I64)
+        expect(t, name, (B,))
     expect(esc, "esc", (B,), torch.bool)
     if width == 2:
         if mixbits is None or mixres is None:
             raise ValueError("a CPE needs mixbits and mixres")
-        expect(mixbits, "mixbits", (B,), I64)
-        expect(mixres, "mixres", (B,), I64)
+        expect(mixbits, "mixbits", (B,))
+        expect(mixres, "mixres", (B,))
     elif mixbits is not None or mixres is not None or r1 is not None:
         raise ValueError("an SCE takes no mixbits, mixres or r1")
     if r0 is not None:
@@ -68,8 +67,8 @@ def element_pcm(words, num_samples: int, width: int, bs: int, depth: int,
     samples past each lane's ``num`` zeroed.  ``words`` is the (B, W)
     int32 word image; ``num``, ``pos_shift`` (the shift-byte block's bit),
     ``pos_esc`` (the escape samples' bit), ``mixbits`` and ``mixres``
-    (a CPE's) are (B,) int64 and ``esc`` (B,) bool, as the parse gives
-    them."""
+    (a CPE's) are (B,) int32 and ``esc`` (B,) bool, as the parse kernel
+    writes them."""
     _check(words, num_samples, width, bs, depth, num, pos_shift, pos_esc,
            esc, r0, r1, mixbits, mixres, out, c0)
     if not on_cuda(words, num, pos_shift, pos_esc, esc, r0, r1, mixbits,

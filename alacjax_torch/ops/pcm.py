@@ -45,7 +45,7 @@ def element_pcm(words, num_samples: int, width: int, bs: int, depth: int,
     int32, or None for an element whose every lane escaped (then zeros,
     with no unmix and no shift bytes).  ``words`` is the (B, W) int32
     word image; ``num``, ``pos_shift``, ``pos_esc``, ``mixbits`` and
-    ``mixres`` are the parse's (B,) int64 per-lane values, ``esc`` its
+    ``mixres`` are the parse's (B,) int32 per-lane values, ``esc`` its
     (B,) bool escape flags.  With ``unescape`` an escape lane takes its
     verbatim samples; without it (the "nounesc" cut) it keeps what the
     unmix and shift bytes made of its streams.  Samples at and past a

@@ -227,6 +227,8 @@ REPLACES = {
     # raw mode of alacjax's decode_channel behind rice_decode
     "decode_cursor": "alacjax/ops/fused_decode.py:337",
     "decode_raw": "alacjax/ops/rice.py:427",
+    # the decode's per-element header parse (XLA glue in alacjax)
+    "parse": "alacjax/codec.py:1166",
     # and the decode's per-element unmix, shift_in and escape select, then
     # the stack of the channels and the tail mask (XLA glue in alacjax)
     "pcm": "alacjax/codec.py:1336",
@@ -249,22 +251,24 @@ WRAPPERS = (
      "predict"),
     ("alacjax_torch.kernels.predict", "rice_cost", "plain_rice_cost",
      "rice_cost"),
+    ("alacjax_torch.kernels.parse", "parse_element", "plain", "parse"),
     ("alacjax_torch.kernels.pcm", "element_pcm", "plain", "pcm"),
 )
 PATH_KERNELS = {         # the kernels each path must launch
-    "phase 4": ("cost", "emit", "merge", "decode", "pcm"),
-    "phase 5": ("decode", "pcm"),
-    "phase 6": ("decode", "decode_hi", "pcm"),
+    "phase 4": ("cost", "emit", "merge", "decode", "parse", "pcm"),
+    "phase 5": ("decode", "parse", "pcm"),
+    "phase 6": ("decode", "decode_hi", "parse", "pcm"),
     "phase 7": ("cost", "emit", "merge"),
     "phase 8": ("predict", "rice_cost", "emit", "merge"),
-    "phase 9": ("cost", "emit", "merge", "decode", "pcm"),
-    "phase 10": ("cost", "emit", "merge", "decode", "pcm"),
-    "phase 11": ("cost", "emit", "merge", "decode", "pcm"),
-    "phase 12": ("decode", "decode_cursor", "pcm"),
+    "phase 9": ("cost", "emit", "merge", "decode", "parse", "pcm"),
+    "phase 10": ("cost", "emit", "merge", "decode", "parse", "pcm"),
+    "phase 11": ("cost", "emit", "merge", "decode", "parse", "pcm"),
+    "phase 12": ("decode", "decode_cursor", "parse", "pcm"),
     "phase 12 raw": ("decode_raw",),
-    "phase 13": ("cost", "emit", "merge", "decode", "decode_hi", "pcm"),
-    "phase 14": ("cost", "emit", "merge", "decode", "pcm"),
-    "phase 14 bench": ("cost", "emit", "merge", "decode", "pcm"),
+    "phase 13": ("cost", "emit", "merge", "decode", "decode_hi", "parse",
+                 "pcm"),
+    "phase 14": ("cost", "emit", "merge", "decode", "parse", "pcm"),
+    "phase 14 bench": ("cost", "emit", "merge", "decode", "parse", "pcm"),
 }
 HBM_BYTES_PER_S = 3.35e12    # one H100 SXM's device memory rate
 # Lane operations one Hopper SM issues per clock: four schedulers, each
@@ -438,6 +442,8 @@ def work(call, got, counts):
         return moved, 0, 0
     if name == "pcm":
         return pcm_bytes(wrapper, args, kwargs), 0, nbytes(outs) // 4
+    if name == "parse":
+        return parse_bytes(wrapper, args, kwargs, outs), 0, args[0].shape[0]
     a = inspect.signature(wrapper).bind(*args, **kwargs)
     a.apply_defaults()
     a = a.arguments
@@ -512,6 +518,21 @@ def pcm_bytes(wrapper, args, kwargs) -> int:
                                    "mixbits", "mixres")])
     return (width * S * (4 * B + stream * (B - n_esc))
             + n_esc * width * S * a["depth"] // 8 + lanes)
+
+
+def parse_bytes(wrapper, args, kwargs, outs) -> int:
+    """The bytes a parse call must move: each lane's fields from its start
+    to its last channel's last coefficient at max_ord (the header, the mix
+    token, each channel's param header and max_ord coefficients), its
+    per-lane inputs and every output once."""
+    import inspect
+    a = inspect.signature(wrapper).bind(*args, **kwargs)
+    a.apply_defaults()
+    a = a.arguments
+    B = a["words"].shape[0]
+    bits = 23 + 16 + a["width"] * 16 * (a["max_ord"] + 1)
+    return (B * bits // 8 + nbytes([a["bitpos"], a["num"]])
+            + nbytes(outs))
 
 
 def timed(fn, reps: int):
@@ -625,6 +646,8 @@ def signature(call):
         head = (name, ("lanes per row", args[1].shape[0] // args[0].shape[0]))
     elif name == "pcm":
         head = (name, ("samples", args[1]))
+    elif name == "parse":
+        head = (name, ("width", args[4]), ("max_ord", args[7]))
     else:
         head = (name, tuple(args[0].shape[1:]))
     return (head + tuple(map(part, args[1:]))
@@ -714,6 +737,11 @@ def describe(name: str, args, kwargs) -> str:
             parts.append("coefs0 per order")
     elif name in ("emit", "rice_cost"):
         parts = [f"bit_size {v(args[1])}"]
+    elif name == "parse":
+        parts = [f"width {args[4]} max_ord {args[7]}",
+                 "lane start" if args[1] is not None else "start 0"]
+        if args[2] is not None:
+            parts.append("num lane")
     elif name == "pcm":
         parts = [f"width {args[2]} bs {args[3]} depth {args[4]}"]
         if len(args) < 10 or args[9] is None:

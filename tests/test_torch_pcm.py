@@ -192,17 +192,17 @@ def test_nounesc_cut_equals_alacjax():
 
 
 def _args(B=4, W=9, nch_out=3, width=2, device="cpu"):
-    i64 = dict(dtype=torch.int64, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
     a = dict(words=torch.zeros((B, W), dtype=torch.int32, device=device),
              num_samples=S, width=width, bs=1, depth=24,
-             num=torch.full((B,), S, **i64),
-             pos_shift=torch.zeros((B,), **i64),
-             pos_esc=torch.zeros((B,), **i64),
+             num=torch.full((B,), S, **i32),
+             pos_shift=torch.zeros((B,), **i32),
+             pos_esc=torch.zeros((B,), **i32),
              esc=torch.zeros((B,), dtype=torch.bool, device=device),
              r0=torch.zeros((B, S), dtype=torch.int32, device=device),
              r1=torch.zeros((B, S), dtype=torch.int32, device=device),
-             mixbits=torch.zeros((B,), **i64),
-             mixres=torch.zeros((B,), **i64),
+             mixbits=torch.zeros((B,), **i32),
+             mixres=torch.zeros((B,), **i32),
              out=torch.zeros((B, nch_out, S), dtype=torch.int32,
                              device=device), c0=1)
     return a
@@ -211,10 +211,10 @@ def _args(B=4, W=9, nch_out=3, width=2, device="cpu"):
 @pytest.mark.parametrize("change,error,match", [
     (dict(words=torch.zeros((4, 9), dtype=torch.int64)), TypeError, "words"),
     (dict(r0=torch.zeros((4, S), dtype=torch.int64)), TypeError, "r0"),
-    (dict(num=torch.zeros((4,), dtype=torch.int32)), TypeError, "num"),
+    (dict(num=torch.zeros((4,), dtype=torch.int64)), TypeError, "num"),
     (dict(esc=torch.zeros((4,), dtype=torch.int64)), TypeError, "esc"),
     (dict(r1=torch.zeros((4, S + 1), dtype=torch.int32)), ValueError, "r1"),
-    (dict(pos_shift=torch.zeros((5,), dtype=torch.int64)), ValueError,
+    (dict(pos_shift=torch.zeros((5,), dtype=torch.int32)), ValueError,
      "pos_shift"),
     (dict(mixres=None), ValueError, "mixbits and mixres"),
     (dict(out=torch.zeros((4, 3, S), dtype=torch.int32)[:, :, ::1].transpose(
@@ -225,7 +225,7 @@ def _args(B=4, W=9, nch_out=3, width=2, device="cpu"):
     (dict(depth=33), ValueError, "depth"),
     (dict(width=1), ValueError, "SCE"),
     (dict(r0=None), ValueError, "r1 without r0"),
-    (dict(mixbits=torch.zeros((4,), dtype=torch.int64, device="meta")),
+    (dict(mixbits=torch.zeros((4,), dtype=torch.int32, device="meta")),
      ValueError, "mixed devices"),
 ], ids=["words-dtype", "r0-dtype", "num-dtype", "esc-dtype", "r1-shape",
         "lane-shape", "mixres-missing", "out-shape", "c0-range", "width",

@@ -28,11 +28,14 @@ from alacjax_torch.kernels import cost as k_cost
 from alacjax_torch.kernels import decode as k_decode
 from alacjax_torch.kernels import emit as k_emit
 from alacjax_torch.kernels import merge as k_merge
+from alacjax_torch.kernels import parse as k_parse
 from alacjax_torch.kernels import predict as k_predict
-from alacjax_torch.ops import bitpack, fused_decode, predict, rice
+from alacjax_torch.ops import bitpack, fused_decode, parse, predict, rice
 from alacjax_torch.oracle.encoder import PB_FACTOR
 from alacjax_torch.state import init_coefs_batched
-from alacjax_torch.types import DENSHIFT_DEFAULT, AlacConfig, KB0, MB0, PB0
+from alacjax_torch.types import (
+    DENSHIFT_DEFAULT, AlacConfig, ElementTag, KB0, MB0, PB0,
+)
 from torch_decode_cases import decode_lanes
 from torch_emit_cases import CAP, TILE_EDGE_S, emit_lanes
 from torch_predict_cases import CASES as PREDICT_CASES
@@ -180,9 +183,16 @@ def test_cpu_tensors_take_the_plain_version(rng):
                                        raw=True)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    cfg = AlacConfig(bit_depth=16, num_channels=2)
+    got = k_parse.parse_element(words, lane[0], None, ElementTag.CPE, 2, cfg,
+                                16, 16)
+    want = parse.parse_element(words, lane[0], None, ElementTag.CPE, 2, cfg,
+                               16, 16)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
     assert kernels.LAUNCHES == dict.fromkeys(
         ("cost", "emit", "merge", "decode", "decode_hi", "decode_cursor",
-         "decode_raw", "predict", "rice_cost", "pcm"), 0)
+         "decode_raw", "predict", "rice_cost", "parse", "pcm"), 0)
 
 
 def test_other_devices_raise_instead_of_falling_back(rng):
