@@ -31,12 +31,12 @@ channel decodes (decode kernel at 8, 16 or 30 taps; channel c+1 starts
 where channel c ends) -> one pcm kernel launch (unmix, shift-byte
 re-insert, escape select, tail mask) writing the element's channels of
 the call's (B, C, S) output; the next element starts where this one
-ends.  With ``stacked`` (alacjax's ALACJAX_DECODE_STACKED=1, here an
-argument): the parse and one Rice cursor launch per channel but the
-last chain the starts, then one stacked decode launch covers every
-channel, then each element's pcm launch.  ``stop_at`` cuts either
-program at alacjax's profiling points (encode "mix", "search", "rice",
-"assemble"; decode "params", "scan", "nounesc").
+ends.  This is the decode's one program: alacjax's cursor+stacked
+two-pass (ALACJAX_DECODE_STACKED=1) has no counterpart here: it never
+beat the chained decode, on the TPU or on the H100.
+``stop_at`` cuts the encode and the decode at alacjax's profiling
+points (encode "mix", "search", "rice", "assemble"; decode "params",
+"scan", "nounesc").
 
 Each ``lax.cond`` of the reference is a Python ``if`` on a flag read
 back from the device, one readback for all of the flags known at the
@@ -929,42 +929,34 @@ def _element_pcm(pcm, c0: int, words_i32, p, recon, width: int,
 
 
 def decode_frames_device(words, config: AlacConfig, num_samples: int,
-                         taps: int = fused_decode.TAPS, stacked: bool = False,
+                         taps: int = fused_decode.TAPS,
                          stop_at: str | None = None):
     """(B, W) int32 word image -> ((B, C, S) int32 pcm, (B,) bool err,
     (B,) int32 num): alacjax.codec.decode_frames_device, every layout and
     depth.  ``taps`` (8, 16 or 30) is the width of the channel scans'
     FIR walk; lanes with a higher order flag err.
 
-    Chained (the default): channel c + 1's decode starts where channel
-    c's ends.  ``stacked``: alacjax's cursor+stacked two-pass
-    (codec.py:1248-1285, :1372-1420): pass A parses every element and
-    chains the channels' starts with one cursor launch per channel but
-    the last (none for an element whose every lane escaped); pass B
-    decodes every channel in ONE stacked launch (lane l on packet row
-    l % B, channels in order), then each element's pcm launch (unmix,
-    shift bytes, escape select and tail mask).  The same pcm, err and
-    num.
+    Per element: one parse launch, one ``decode.flags`` readback, the
+    chained channel decodes (channel c + 1 starts where channel c ends;
+    none when every lane escaped), one pcm launch (unmix, shift bytes,
+    escape select and tail mask), then the next element starts where
+    this one ends.
 
-    ``stop_at`` cuts the program for profiling (alacjax's cuts; it runs
-    the chained program): "params" returns (the first element's
-    per-channel (mode, den, pbf, order, coefs), (Rice start bits, err))
-    after its parse; "scan" (its channels' reconstructed streams, (end
-    bits, err)) after its channel decodes; "nounesc" the whole decode
-    without the escape samples."""
+    ``stop_at`` cuts the program for profiling (alacjax's cuts):
+    "params" returns (the first element's per-channel (mode, den, pbf,
+    order, coefs), (Rice start bits, err)) after its parse; "scan" (its
+    channels' reconstructed streams, (end bits, err)) after its channel
+    decodes; "nounesc" the whole decode without the escape samples."""
     with span("decode"):
-        return _decode_frames(words, config, num_samples, taps, stacked,
-                              stop_at)
+        return _decode_frames(words, config, num_samples, taps, stop_at)
 
 
 def _decode_frames(words, config: AlacConfig, num_samples: int, taps: int,
-                   stacked: bool, stop_at: str | None):
+                   stop_at: str | None):
     """decode_frames_device's program, inside its ``decode`` span."""
-    if stop_at is not None:
-        if stop_at not in DECODE_CUTS:
-            raise ValueError(f"stop_at must be one of {DECODE_CUTS}, got "
-                             f"{stop_at!r}")
-        stacked = False
+    if stop_at is not None and stop_at not in DECODE_CUTS:
+        raise ValueError(f"stop_at must be one of {DECODE_CUTS}, got "
+                         f"{stop_at!r}")
     B = words.shape[0]
     dev = words.device
     S = num_samples
@@ -982,86 +974,43 @@ def _decode_frames(words, config: AlacConfig, num_samples: int, taps: int,
     pcm = torch.empty((B, n_total, S), dtype=I32, device=dev)
     unescape = stop_at != "nounesc"
     c0 = 0
-    chans, elems = [], []       # stacked: per channel, per element
     for tag, width in config.elements:
         if stop_at == "params":
             # alacjax's cut reads the fields the decode does not keep
             # (pbf, an escape lane's order): the plain parse's
             return plain_parse.params_cut(words_i32, tag, width, config, S,
                                           max_ord)
-        is_cpe = width == 2
         with span("decode.parse"):
             p = k_parse.parse_element(words_i32, bitpos, num, tag, width,
                                       config, S, max_ord)
             esc, num = p.esc, p.num
             err = p.err if err is None else err | p.err
-        chanbits = depth - 8 * bs + (1 if is_cpe else 0)
+        chanbits = depth - 8 * bs + (1 if width == 2 else 0)
         bitpos = p.rice
         # one readback per element: a lane coded, a lane escaped
         coded, escaped = readback(p.flags, "decode.flags")
-        all_esc, any_esc = not coded, bool(escaped)
-
-        if stacked:
-            # pass A: chain the channel starts with the cursor
-            with span("decode.scan"):
-                for ci in range(width):
-                    args = p.args(ci)
-                    chans.append((bitpos, chanbits, esc) + args)
-                    if len(chans) < n_total and not all_esc:
-                        end, cerr = k_decode.cursor_scan(
-                            words_i32, bitpos, S, chanbits, config.mb,
-                            args[0], kb, wb, skip=esc, num=num)
-                        err = err | (~esc & cerr)
-                        bitpos = torch.where(esc, bitpos, end)
-            elems.append((p, width, all_esc, any_esc))
-        else:
-            with span("decode.scan"):
-                recon = None
-                if not all_esc:
-                    # chained channel scans: channel c+1 starts where
-                    # channel c ends
-                    recon = []
-                    for ci in range(width):
-                        pb, coefs, mode, order, den = p.args(ci)
-                        samples, bitpos_n, rerr = k_decode.decode_channel(
-                            words_i32, bitpos, S, chanbits, config.mb, pb,
-                            kb, wb, coefs, mode, order, den, num=num,
-                            taps=taps)
-                        bitpos = torch.where(esc, bitpos, bitpos_n)
-                        err = err | (~esc & rerr)
-                        recon.append(samples)
-            if stop_at == "scan":
-                if recon is None:
-                    recon = [torch.zeros((B, S), dtype=I32, device=dev)
-                             ] * width
-                return recon, (bitpos, err)
-            _element_pcm(pcm, c0, words_i32, p, recon, width, config, S,
-                         unescape and any_esc)
-            c0 += width
-        bitpos = torch.where(esc, p.pos_esc + width * depth * num, bitpos)
-
-    if stacked:
-        # pass B: every channel in one stacked launch
         with span("decode.scan"):
-            samples_all = None
-            if not all(e[2] for e in elems):
-                def cat(i):
-                    return torch.cat([c[i] for c in chans]).contiguous()
-                cbs = [c[1] for c in chans]
-                samples_all, _, rerr = k_decode.decode_channel(
-                    words_i32, cat(0), S,
-                    _lane_chanbits(cbs, B, dev), config.mb, cat(3), kb, wb,
-                    cat(4), cat(5), cat(6), cat(7),
-                    num=_tile_lanes(num, n_total), taps=taps,
-                    chanbits_max=max(cbs))
-                err = err | (~cat(2) & rerr).reshape(n_total, B).any(dim=0)
-        for p, width, all_esc, any_esc in elems:
-            recon = (None if all_esc else
-                     [samples_all[(c0 + ci) * B:(c0 + ci + 1) * B]
-                      for ci in range(width)])
-            _element_pcm(pcm, c0, words_i32, p, recon, width, config, S,
-                         any_esc)
-            c0 += width
+            recon = None
+            if coded:
+                # chained channel scans: channel c+1 starts where channel
+                # c ends
+                recon = []
+                for ci in range(width):
+                    pb, coefs, mode, order, den = p.args(ci)
+                    samples, bitpos_n, rerr = k_decode.decode_channel(
+                        words_i32, bitpos, S, chanbits, config.mb, pb, kb,
+                        wb, coefs, mode, order, den, num=num, taps=taps)
+                    bitpos = torch.where(esc, bitpos, bitpos_n)
+                    err = err | (~esc & rerr)
+                    recon.append(samples)
+        if stop_at == "scan":
+            if recon is None:
+                recon = [torch.zeros((B, S), dtype=I32, device=dev)] * width
+            return recon, (bitpos, err)
+        _element_pcm(pcm, c0, words_i32, p, recon, width, config, S,
+                     unescape and bool(escaped))
+        c0 += width
+        bitpos = torch.where(esc, p.pos_esc + width * depth * num, bitpos)
     return pcm, err, num
 
 
@@ -1124,20 +1073,15 @@ class TorchCodec:
     moves to the CPU by itself.  ``predict_legacy`` runs the encoder's
     trial and search through the standalone predictor kernel and the
     Rice cost kernel instead of the fused cost kernel (alacjax's
-    ALACJAX_PALLAS_PREDICT_LEGACY=1): the same packets.
-    ``decode_stacked`` decodes through the cursor+stacked two-pass
-    (decode_frames_device's ``stacked``, alacjax's ALACJAX_DECODE_STACKED=1)
-    instead of the chained channel decodes: the same PCM."""
+    ALACJAX_PALLAS_PREDICT_LEGACY=1): the same packets."""
 
     def __init__(self, config: AlacConfig, chunk: int = DEFAULT_CHUNK,
-                 device="cuda", predict_legacy: bool = False,
-                 decode_stacked: bool = False):
+                 device="cuda", predict_legacy: bool = False):
         check_encode_config(config)
         self.device = _resolve_device(device, type(self).__name__)
         self.config = config
         self.chunk = chunk
         self.predict_legacy = predict_legacy
-        self.decode_stacked = decode_stacked
         self.num_words = _num_words(config)
         self.fallback_frames = 0   # frames the device flagged -> oracle
 
@@ -1151,8 +1095,7 @@ class TorchCodec:
     def _decode(self, words, taps: int = fused_decode.TAPS):
         """(B, W) int32 device tensor -> (pcm, err, num) tensors."""
         return decode_frames_device(words, self.config,
-                                    self.config.frame_length, taps=taps,
-                                    stacked=self.decode_stacked)
+                                    self.config.frame_length, taps=taps)
 
     def encode_frames(self, pcm: np.ndarray) -> list[bytes]:
         """(nf, C, S) planar int -> list of nf packets (full frames)."""
@@ -1357,25 +1300,22 @@ def _lookup_devices(device, devices) -> tuple[torch.device, ...]:
 
 def get_codec(config: AlacConfig, chunk: int = DEFAULT_CHUNK,
               device="cuda", predict_legacy: bool = False,
-              devices=None, decode_stacked: bool = False) -> TorchCodec:
+              devices=None) -> TorchCodec:
     """Shared-cache codec lookup by (config, chunk, devices,
-    predict_legacy, decode_stacked).  ``devices`` (see _lookup_devices;
+    predict_legacy).  ``devices`` (see _lookup_devices;
     None: every visible card, bounded by ALACJAX_DEVICES) of more than
     one entry give a ShardedCodec over them, one device the plain
     TorchCodec."""
     devs = _lookup_devices(device, devices)
-    key = (config, chunk, tuple(map(str, devs)), predict_legacy,
-           decode_stacked)
+    key = (config, chunk, tuple(map(str, devs)), predict_legacy)
     if key not in _CODEC_CACHE:
         if len(devs) == 1:
             _CODEC_CACHE[key] = TorchCodec(config, chunk, device=devs[0],
-                                           predict_legacy=predict_legacy,
-                                           decode_stacked=decode_stacked)
+                                           predict_legacy=predict_legacy)
         else:
             from .parallel import ShardedCodec
             _CODEC_CACHE[key] = ShardedCodec(config, devs, chunk,
-                                             predict_legacy=predict_legacy,
-                                             decode_stacked=decode_stacked)
+                                             predict_legacy=predict_legacy)
     return _CODEC_CACHE[key]
 
 

@@ -4,10 +4,10 @@ One wrapper per kernel: cost (the fused predict + Rice-cost search
 scan), emit (Rice emission), merge (packet compaction), decode (the
 channel decode at 8 taps, and at 16/30 taps as ``decode_hi``, one
 channel or stacked channels; its Rice warp alone as ``decode_cursor``,
-end bits only, and ``decode_raw``, the residuals), predict (the
-standalone predictor), rice_cost (its second, cost-only pass), parse
-(the decode's per-element header parse) and pcm (the decode's unmix,
-shift bytes, escape select and tail mask).
+end bits only and on no codec path, and ``decode_raw``, the residuals),
+predict (the standalone predictor), rice_cost (its second, cost-only
+pass), parse (the decode's per-element header parse) and pcm (the
+decode's unmix, shift bytes, escape select and tail mask).
 A wrapper checks its inputs, allocates its outputs, and for CUDA tensors
 launches its kernel (or raises — there is no fallback); for CPU tensors
 it runs the plain torch version from ``alacjax_torch.ops``.  Every

@@ -5,12 +5,14 @@ under ``LAUNCHES["decode"]``; the 16- and 30-tap instances, which the
 codec's retry ladder runs, are the port of
 alacjax/ops/pallas/decode_pallas.py and count under
 ``LAUNCHES["decode_hi"]``.  The cursor instance (``cursor_scan``, the
-first pass of the stacked multichannel decode) counts under
+Rice warp alone, on no codec path: the instrument that times the Rice
+chain apart from the FIR walk, and the counterpart of alacjax's
+fused_decode.cursor_scan) counts under
 ``LAUNCHES["decode_cursor"]``, the raw instance (``decode_channel(...,
 raw=True)``, behind ops.rice.rice_decode) under ``LAUNCHES["decode_raw"]``.
 Every instance reads lane l's bits from row l % rows of the (rows, W)
-word image, so a stacked launch over n channels of B packets reads the
-(B, W) image in place.  Plain versions:
+word image (decode_step_pallas's stacked row map), so a launch over n
+channels of B packets reads the (B, W) image in place.  Plain versions:
 alacjax_torch.ops.fused_decode.decode_channel and cursor_scan."""
 
 from __future__ import annotations
@@ -129,7 +131,8 @@ def decode_channel(words, start_bits, num_samples: int, chanbits,
 def cursor_scan(words, start_bits, num_samples: int, chanbits, mb0: int, pb,
                 kb: int, wb: int, chanbits_max: int | None = None,
                 skip=None, num=None, cycles=None):
-    """The cursor instance: (rows, W) int32 word image -> (end_bits (L,)
+    """The cursor instance, on no codec path (the Rice chain's timing
+    instrument): (rows, W) int32 word image -> (end_bits (L,)
     int32, err (L,) bool) of each lane's Rice stream over
     ``num_samples`` (or ``num``) samples, with no samples out; lane l
     reads row l % rows.  ``skip`` ((L,) bool) lanes stay at their start

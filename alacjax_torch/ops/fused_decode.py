@@ -12,10 +12,11 @@ reconstructed sample — exactly alacjax's ``_rice_substep`` +
 
 One Rice cursor (``_RiceCursor``) serves three functions, as in
 alacjax: the full decode, its ``raw`` mode (the signed residuals, behind
-rice.rice_decode) and ``cursor_scan`` (end bits only: the first pass of
-the stacked multichannel decode).  Lane l of a call reads row l % rows
-of the (rows, W) word image, so one call decodes stacked channels of the
-same packets without repeating the image.
+rice.rice_decode) and ``cursor_scan`` (end bits only; on no codec
+path, the plain version of the Rice chain's timing instrument).  Lane l
+of a call reads row l % rows of the (rows, W) word image, so one call
+decodes stacked channels of the same packets without repeating the
+image.
 
 What the port drops: the TPU reads its bits through a sliding cache
 refilled one row per scan step, with a drift budget whose underrun
@@ -194,8 +195,9 @@ def cursor_scan(words, start_bits, num_samples: int, chanbits, mb0: int, pb,
                 skip=None, num=None):
     """The Rice cursor alone (alacjax fused_decode.cursor_scan): walk each
     lane's codewords over ``num_samples`` substeps without reconstructing
-    samples, the first pass of the stacked multichannel decode (channel
-    c + 1's stream starts where channel c's ends).  Lane l of the L
+    samples: where the lane's stream ends, which is where the next
+    channel's starts.  The codec's decode does not call it; it is the
+    plain version of the Rice chain's timing instrument.  Lane l of the L
     per-lane arguments reads row l % rows of the (rows, W) image.
     ``skip`` ((L,) bool) lanes do not move: their end is their start and
     their err 0.  ``num`` (per-lane, <= S) walks only the first num
@@ -234,7 +236,7 @@ def decode_channel(words, start_bits, num_samples: int, chanbits,
     start_bits/pb/coefs0/mode/numactive/denshift are per-lane tensors of
     L lanes; lane l reads row l % rows of the image (rows = L for one
     channel; rows = B for n channels of B packets stacked channel-major,
-    alacjax's stacked decode without repeating the image).
+    without repeating the image).
     ``chanbits`` is an int or a per-lane (L,) tensor whose values are at
     most ``chanbits_max`` (only the kernel reads the bound).  ``num``
     (per-lane, <= S) decodes only the first num samples of each lane.

@@ -51,13 +51,12 @@ class ShardedCodec(_codec.TorchCodec):
 
     def __init__(self, config: AlacConfig, devices=None,
                  chunk: int = _codec.DEFAULT_CHUNK,
-                 predict_legacy: bool = False, decode_stacked: bool = False):
+                 predict_legacy: bool = False):
         self.devices = frame_mesh(devices)
         n = len(self.devices)
         chunk = -(-chunk // n) * n
         super().__init__(config, chunk, device=self.devices[0],
-                         predict_legacy=predict_legacy,
-                         decode_stacked=decode_stacked)
+                         predict_legacy=predict_legacy)
 
     def _split(self, fn, *tensors):
         """``fn`` on each device's share of the leading (frames) axis of

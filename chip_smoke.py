@@ -19,8 +19,8 @@ Phases, each of which exits nonzero on failure:
      (phase 8's stereo corpus and the 5.1 corpus), of one stream
      step with persistent banks (packet 2 of phase 10's streams, the
      banks carried from packet 1: the cost kernel with one block of
-     starting coefficients per order), of phase 12's stacked decodes
-     (the cursor launches and the stacked decode launch, stereo and
+     starting coefficients per order), of phase 12's cursor calls
+     (the cursor instance on each 8-tap launch's stream, stereo and
      5.1) and of its rice_decode (the raw instance) — a new signature's
      call at S = 4096 is compared on its first PREFIX samples (with num
      clamped there), a causal prefix being a whole input of its own, and
@@ -110,13 +110,11 @@ Phases, each of which exits nonzero on failure:
      bits, and its decode, equal the unsplit codec's; the host API's
      packets equal phase 4's and decode losslessly; roundtrip_step is
      lossless and its total_bytes is the sum of the packets' lengths;
- 12. the stacked decode: phase 4's stereo-16 words and phase 5's 24-bit
-     5.1 words through TorchCodec(..., decode_stacked=True): PCM, err
-     and num equal to the chained decode's, lossless, exactly one
-     cursor launch per channel but the last and one stacked decode
-     launch; the cursor's ms per channel beside the chained decode's
-     8-tap launch per channel, in turns, the stacked launch's ms and the
-     whole stacked and chained decodes in turns; rice_decode of the stereo
+ 12. the Rice chain alone: the cursor instance (the Rice warp, on no
+     codec path) on the stream of each 8-tap launch of the chained
+     decodes of phase 4's stereo-16 words and phase 5's 24-bit 5.1
+     words, ending where the launch ends; the cursor's ms per channel
+     beside the 8-tap launch's, in turns; rice_decode of the stereo
      frames' first channel (the raw instance), ending where the cursor
      ends; then the encode of phase 4's batch and the decodes of phases
      4 and 5 up to each profiling cut (``stop_at``), ms per batch;
@@ -223,8 +221,9 @@ REPLACES = {
     "predict": "alacjax/ops/pallas/predict_pallas.py:128",
     # a glue kernel: the XLA scan the predict_legacy route prices with
     "rice_cost": "alacjax/ops/rice.py:195",
-    # glue kernels: the XLA cursor scan of the stacked decode, and the
-    # raw mode of alacjax's decode_channel behind rice_decode
+    # glue kernels: the XLA cursor scan (alacjax's stacked decode's first
+    # pass; here on no codec path), and the raw mode of alacjax's
+    # decode_channel behind rice_decode
     "decode_cursor": "alacjax/ops/fused_decode.py:337",
     "decode_raw": "alacjax/ops/rice.py:427",
     # the decode's per-element header parse (XLA glue in alacjax)
@@ -2131,83 +2130,57 @@ def raw_drive(codec, words):
             start, pb, chanbits)
 
 
-def stacked_decode(codec, codec51, w4, w51, pcm4, pcm51, nums51, counts):
-    """Phase 12: phase 4's stereo-16 words and phase 5's 24-bit 5.1 words
-    through decode_frames_device(stacked=True) (TorchCodec(...,
-    decode_stacked=True)): PCM, err and num equal to the chained decode,
-    lossless, one cursor launch per channel but the last and one stacked
-    decode launch; the cursor's ms per channel beside the chained
-    decode's 8-tap launch per channel (in turns), the stacked launch, and
-    the whole stacked decode beside the chained one, in turns; then
-    rice_decode (the raw instance) of the stereo frames' first
-    channel."""
-    import numpy as np
+def cursor_calls(codec, words):
+    """The cursor instance (kernels.decode.cursor_scan, the Rice warp
+    alone, on no codec path) on the stream of each 8-tap launch of
+    codec's decode of ``words``: [(the decode's call, the cursor's
+    (end bits, err))], one per channel."""
+    from alacjax_torch.kernels import decode as kd
+    with recording([], keep=lambda c: c if c[0] == "decode" else None) \
+            as rec:
+        codec._decode(words)
+    return [(call, kd.cursor_scan(*call[3][:8], num=call[4]["num"]))
+            for call in rec]
+
+
+def rice_chain(codec, codec51, w4, w51, counts):
+    """Phase 12: the cursor on each 8-tap launch's stream of the chained
+    decodes of phase 4's stereo-16 and phase 5's 24-bit 5.1 words: it
+    ends where the launch ends on every lane the launch does not flag,
+    and flags no such lane; the cursor's ms per channel beside the 8-tap
+    launch's, in turns (cursor, chained, chained, cursor); then
+    rice_decode (the raw instance) of the stereo frames' first channel."""
     import torch
-    from alacjax_torch import TorchCodec, kernels
     from alacjax_torch.kernels import decode as kd
     out = {}
-    cases = [(label, c, w, ref, nums, n_ch, c._decode(w))
-             for label, c, w, ref, nums, n_ch in (
-                 ("stereo-16", codec, w4, pcm4, None, 2),
-                 ("24-bit 5.1", codec51, w51, pcm51, nums51, 6))]
     with path_run("phase 12", counts):
-        for label, c, w, ref, nums, n_ch, want in cases:
-            st = TorchCodec(c.config, chunk=B, device="cuda",
-                            decode_stacked=True)
-            before = dict(kernels.LAUNCHES)
-            got = st._decode(w)
-            torch.cuda.synchronize()
-            cur = kernels.LAUNCHES["decode_cursor"] - before["decode_cursor"]
-            dec = kernels.LAUNCHES["decode"] - before["decode"]
-            if (cur, dec) != (n_ch - 1, 1):
-                fail(f"phase 12: {label} ran {cur} cursor and {dec} decode "
-                     f"launches, not {n_ch - 1} and 1")
-            for name, g, r in zip(("pcm", "err", "num"), got, want):
-                if not torch.equal(g, r):
-                    fail(f"phase 12: {label} stacked {name} differs from "
-                         "the chained decode")
-            if bool(got[1].any().item()) or not torch.equal(
-                    got[0], torch.from_numpy(ref).to("cuda")):
-                fail(f"phase 12: the {label} stacked decode is not lossless")
-            if nums is not None and not np.array_equal(
-                    got[2].cpu().numpy(), nums):
-                fail(f"phase 12: the {label} stacked decode's num differs")
-            out[label] = (st, c, w, n_ch)
-    del cases
-    print("  stacked == chained (pcm, err, num) and lossless on stereo-16 "
-          "and 24-bit 5.1; launches 1 cursor + 1 decode and 5 cursor + 1 "
-          "decode", flush=True)
-    for label, (st, c, w, n_ch) in out.items():
-        with recording([]) as rec_st:
-            st._decode(w)
-        with recording([]) as rec_ch:
-            c._decode(w)
-        # the cursor launches and the chained 8-tap launches in turns
-        # (cursor, chained, chained, cursor), each call's two times
-        # averaged
-        group = {"cursor": [c for c in rec_st if c[0] == "decode_cursor"],
-                 "chained": [c for c in rec_ch if c[0] == "decode"]}
+        for label, c, w in (("stereo-16", codec, w4),
+                            ("24-bit 5.1", codec51, w51)):
+            pairs = cursor_calls(c, w)
+            for k, (call, (c_end, c_err)) in enumerate(pairs):
+                _, d_end, d_err = call[1](*call[3], **call[4])
+                if not torch.equal(c_end[~d_err], d_end[~d_err]) or bool(
+                        (c_err & ~d_err).any().item()):
+                    fail(f"phase 12: {label} channel {k}: the cursor's end "
+                         "bits or err differ from the 8-tap decode's")
+            out[label] = [call for call, _ in pairs]
+    print("  the cursor ends where each 8-tap launch ends on stereo-16 and "
+          "24-bit 5.1, and flags no lane the launch does not", flush=True)
+    for label, group in out.items():
         took = {"cursor": [], "chained": []}
         for which in ("cursor", "chained", "chained", "cursor"):
-            took[which].append([timed(lambda: f(*a, **k), reps=3)[1]
-                                for _, f, _, a, k in group[which]])
+            took[which].append([
+                timed(lambda: kd.cursor_scan(*a[:8], num=k["num"])
+                      if which == "cursor" else f(*a, **k), reps=3)[1]
+                for _, f, _, a, k in group])
         cur_ms, ch_ms = ([sum(t) / len(t) for t in zip(*took[which])]
                          for which in ("cursor", "chained"))
-        stk_ms = [timed(lambda: f(*a, **k), reps=3)[1]
-                  for n, f, _, a, k in rec_st if n == "decode"]
-        del rec_st, rec_ch, group
-        turns = {"chained": [], "stacked": []}
-        for which in ("chained", "stacked", "stacked", "chained"):
-            fn = c._decode if which == "chained" else st._decode
-            turns[which].append(timed(lambda: fn(w), reps=3)[1] / 1e3)
         print(f"  {label}: cursor ms per channel {cur_ms} (mean "
               f"{sum(cur_ms) / len(cur_ms):.4f}); chained 8-tap decode "
               f"launch ms per channel {ch_ms} (mean "
               f"{sum(ch_ms) / len(ch_ms):.4f}; cursor / full "
-              f"{sum(cur_ms) / sum(ch_ms) * len(ch_ms) / len(cur_ms):.3f}); "
-              f"stacked decode launch over {n_ch} x {B} lanes {stk_ms[0]:.4f}"
-              f" ms; whole decode s per batch, in turns: chained "
-              f"{turns['chained']}, stacked {turns['stacked']}", flush=True)
+              f"{sum(cur_ms) / sum(ch_ms):.3f})", flush=True)
+    del out
     with path_run("phase 12 raw", counts):
         (res, end, err), start, pb, cb = raw_drive(codec, w4)
         c_end, c_err = kd.cursor_scan(w4, start, S, cb, codec.config.mb, pb,
@@ -2491,22 +2464,20 @@ def main() -> int:
     # the new signatures: per-lane chanbits and num (the 5.1 encode), the
     # standalone-predictor route (stereo and 5.1), a stream step with
     # persistent banks (one block of starting coefficients per order),
-    # the stacked decode (its cursors and its stacked launch, stereo and
-    # 5.1) and rice_decode's raw decode
+    # the cursor on each 8-tap launch's stream (stereo and 5.1) and
+    # rice_decode's raw decode
     seen = {signature(c) for c in calls}
     del calls
     legacy = TorchCodec(cfg, chunk=B, device="cuda", predict_legacy=True)
     legacy51 = TorchCodec(cfg51, chunk=B, device="cuda", predict_legacy=True)
-    stacked = TorchCodec(cfg, chunk=B, device="cuda", decode_stacked=True)
-    stacked51 = TorchCodec(cfg51, chunk=B, device="cuda",
-                           decode_stacked=True)
     w4 = codec._encode(x)[0]
     w51 = device_words(codec51, packets51)
     new_calls = []
     for run in (lambda: codec51._encode(x51, n51), lambda: legacy._encode(x),
                 lambda: legacy51._encode(x51, n51),
                 bank_step(cfg, torch.from_numpy(pcm10[:, :2]).to("cuda")),
-                lambda: stacked._decode(w4), lambda: stacked51._decode(w51),
+                lambda: cursor_calls(codec, w4),
+                lambda: cursor_calls(codec51, w51),
                 lambda: raw_drive(codec, w4)):
         with recording([]) as rec:
             run()
@@ -2522,7 +2493,7 @@ def main() -> int:
     chanbits33_cases(rows, repo)
     window_cases(rows, repo)
     fir_cases(rows, repo)
-    del new_calls, legacy, legacy51, stacked, stacked51, run
+    del new_calls, legacy, legacy51, run
     missing = [k for k, r in rows.items() if r["calls"] == 0]
     if missing:
         fail(f"kernels never compared with their plain versions: {missing}")
@@ -2581,12 +2552,13 @@ def main() -> int:
           f"frames on {kind} ({card})", flush=True)
     sharded(cfg, pcm, codec, counts, main4)
 
-    # phase 12: the stacked decode, the raw decode and the profiling cuts
-    print(f"phase 12: stacked decode of phase 4's {B} stereo-16 and phase "
-          f"5's {B} 24-bit 5.1 frames, rice_decode, and the encode and "
-          f"decode up to each profiling cut, on {kind} ({card})", flush=True)
+    # phase 12: the cursor, the raw decode and the profiling cuts
+    print(f"phase 12: the cursor on the 8-tap launches of phase 4's {B} "
+          f"stereo-16 and phase 5's {B} 24-bit 5.1 frames, rice_decode, and "
+          f"the encode and decode up to each profiling cut, on {kind} "
+          f"({card})", flush=True)
     t12 = time.perf_counter()
-    stacked_decode(codec, codec51, w4, w51, pcm, pcm51, nums51, counts)
+    rice_chain(codec, codec51, w4, w51, counts)
     cut_times(codec, codec51, torch.from_numpy(pcm).to("cuda"), w4, w51)
     print(f"  phase 12 took {time.perf_counter() - t12} s")
     del pcm, pcm51, w4, w51

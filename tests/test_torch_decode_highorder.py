@@ -6,7 +6,7 @@ a higher order flag and the others decode.
 Packets come from the benchmark's plain reference (benchmark/ref/:
 highorder.encode and its decoder), at a tiny size on the CPU: ``taps=30``
 equals the reference decoder on orders 4..30 with a partial tail and an
-escape lane, chained and stacked; ``taps=16`` equals ``taps=30`` at
+escape lane; ``taps=16`` equals ``taps=30`` at
 orders up to 16; each lane flags at a width below its order and no
 other lane does; the 30-coefficient parse reads back no more than the
 8-tap one (one ``decode.flags.sync`` per element).
@@ -103,9 +103,8 @@ def packets(layout: dict, orders, seed: int, tail: bool = False,
     return inputs.as_i32(img), pcm, num, port_cfg, esc
 
 
-def decode(words, cfg, taps, stacked=False):
-    return codec.decode_frames_device(words, cfg, S, taps=taps,
-                                      stacked=stacked)
+def decode(words, cfg, taps):
+    return codec.decode_frames_device(words, cfg, S, taps=taps)
 
 
 def assert_same(got, want):
@@ -121,13 +120,11 @@ def high_orders(seed: int):
     return o
 
 
-@pytest.mark.parametrize("stacked", [False, True],
-                         ids=["chained", "stacked"])
-def test_30_taps_equal_the_reference_on_high_orders(taps_seen, stacked):
+def test_30_taps_equal_the_reference_on_high_orders(taps_seen):
     words, pcm, num, cfg, _ = packets(STEREO16, high_orders(5), 5,
                                       tail=True, noise_lane=2)
-    got = decode(words, cfg, 30, stacked)
-    assert taps_seen == ([30] if stacked else [30, 30])
+    got = decode(words, cfg, 30)
+    assert taps_seen == [30, 30]
     assert torch.equal(got[0], pcm)
     assert not got[1].any()
     assert torch.equal(got[2], num.to(torch.int32))
@@ -142,10 +139,9 @@ def test_narrower_walks_flag_exactly_the_lanes_above_them(taps):
                                       noise_lane=3)
     want_err = (orders.amax(dim=1) > taps) & ~esc
     assert want_err.any() and not want_err.all()
-    for stacked in (False, True):
-        pcm_t, err, _ = decode(words, cfg, taps, stacked)
-        assert torch.equal(err, want_err), stacked
-        assert torch.equal(pcm_t[~err], pcm[~err]), stacked
+    pcm_t, err, _ = decode(words, cfg, taps)
+    assert torch.equal(err, want_err)
+    assert torch.equal(pcm_t[~err], pcm[~err])
 
 
 def test_orders_up_to_16_equal_at_16_and_30_taps(taps_seen):
@@ -159,7 +155,7 @@ def test_orders_up_to_16_equal_at_16_and_30_taps(taps_seen):
     assert_same(decode(words, cfg, 30), got)
 
 
-def test_surround_at_30_taps_chained_and_stacked(taps_seen):
+def test_surround_at_30_taps(taps_seen):
     """5.1: SCE at order 4, the CPEs at 12 and 24, the LFE at 4; at 16
     taps every lane flags (the second CPE)."""
     words, pcm, _, cfg, _ = packets(SURROUND24, [4, 12, 12, 24, 24, 4], 9,
@@ -167,7 +163,6 @@ def test_surround_at_30_taps_chained_and_stacked(taps_seen):
     got = decode(words, cfg, 30)
     assert taps_seen == [30] * 6
     assert torch.equal(got[0], pcm) and not got[1].any()
-    assert_same(decode(words, cfg, 30, stacked=True), got)
     assert decode(words, cfg, 16)[1].all()
 
 
@@ -242,17 +237,15 @@ def traced_call(fn):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("stacked", [False, True],
-                         ids=["chained", "stacked"])
 @pytest.mark.parametrize("case", ["ffmpeg30", "surround24"])
-def test_benchmark_shapes_on_card(cuda, case, stacked):
+def test_benchmark_shapes_on_card(cuda, case):
     layout, orders = {
         "ffmpeg30": (STEREO16, None),
         "surround24": (SURROUND24, [4, 12, 12, 24, 24, 4]),
     }[case]
     words, pcm, cfg = card_packets(layout, orders, cuda)
     decode_4096 = lambda: codec.decode_frames_device(  # noqa: E731
-        words, cfg, 4096, taps=30, stacked=stacked)
+        words, cfg, 4096, taps=30)
     decode_4096()                                        # builds and warms
     kernels.reset_launches()
     got, syncs, spans = traced_call(decode_4096)
@@ -263,5 +256,4 @@ def test_benchmark_shapes_on_card(cuda, case, stacked):
     assert [s for s in spans if s.endswith(".sync")] == (
         ["decode.flags.sync"] * n_elem)
     assert kernels.LAUNCHES["decode"] == 0
-    assert kernels.LAUNCHES["decode_hi"] == (1 if stacked else
-                                             layout["num_channels"])
+    assert kernels.LAUNCHES["decode_hi"] == layout["num_channels"]

@@ -4,11 +4,10 @@ as that file does, where libavcodec or gcc is missing.
 
 * FFmpeg's encoder -> the port's decoder: 16-bit stereo (with a partial
   tail), 24-bit stereo (FFmpeg's s32p mode, bytesShifted 1), 5.1 (its
-  own element layout, a frame and a partial tail, through the default
-  chained decode and the stacked one) and orders 20..30 decode through
-  ``TorchCodec(device="cpu").decode_frames_ex`` to FFmpeg's input; the
-  high orders also through decode_frames_device at 30 taps, no lane
-  flagged.
+  own element layout, a frame and a partial tail) and orders 20..30
+  decode through ``TorchCodec(device="cpu").decode_frames_ex`` to
+  FFmpeg's input; the high orders also through decode_frames_device at
+  30 taps, no lane flagged.
 * the port's encoder -> FFmpeg's decoder: every depth (16/20/24/32) in
   mono and stereo, with a partial tail, and every layout of 3 to 8
   channels, lossless (32-bit stereo on tonal content: libavcodec cannot
@@ -35,12 +34,12 @@ def ff():
     return FF()
 
 
-def _decode_ex(cookie, packets, fallback=False, **kw):
+def _decode_ex(cookie, packets, fallback=False):
     """(config, the decoded PCM joined) of FFmpeg's stream through
     decode_frames_ex, and the frames that went to the oracle if
     ``fallback``."""
     cfg = parse_cookie(cookie)
-    codec = TorchCodec(cfg, chunk=len(packets), device="cpu", **kw)
+    codec = TorchCodec(cfg, chunk=len(packets), device="cpu")
     out, nums = codec.decode_frames_ex(packets)
     got = np.concatenate([out[i, :, :nums[i]]
                           for i in range(len(packets))], axis=1)
@@ -89,16 +88,13 @@ def test_ffmpeg_24bit_torch_decode(ff, rng):
     np.testing.assert_array_equal(got, vals)
 
 
-@pytest.mark.parametrize("decode_stacked", [False, True],
-                         ids=["chained", "stacked"])
-def test_ffmpeg_surround51_torch_decode(ff, rng, decode_stacked):
+def test_ffmpeg_surround51_torch_decode(ff, rng):
     """FFmpeg writes an SCE where the 5.1 layout has its LFE; the device
-    decode (the default chained one and the stacked one) takes it as the
-    oracle does, and no frame goes to the oracle."""
+    decode takes it as the oracle does, and no frame goes to the
+    oracle."""
     pcm = gen_pcm(rng, "sine", 6, 600, 16) + np.arange(6)[:, None] * 13
     cookie, pkts = ff.encode_stream(pcm, 16, 48000, 4096)
-    cfg, got, fallback = _decode_ex(cookie, pkts, fallback=True,
-                                    decode_stacked=decode_stacked)
+    cfg, got, fallback = _decode_ex(cookie, pkts, fallback=True)
     assert fallback == 0
     # the port's element-order channel i is FFmpeg's input FF_51_ORDER[i]
     np.testing.assert_array_equal(got, pcm[FF_51_ORDER])

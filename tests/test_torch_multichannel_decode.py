@@ -1,16 +1,17 @@
-"""The port's cursor+stacked multichannel decode == alacjax's chained
-decode and the port's own, bit for bit: PCM, err and num.
+"""The port's multichannel decode (one chained program: each element's
+channels decode in turn, channel c + 1 starting where channel c ends)
+== alacjax's chained decode, bit for bit (PCM, err and num), and
+lossless.
 
-alacjax's stacked program (ALACJAX_DECODE_STACKED=1) is proven equal to
-its chained one by its own tests (tests/test_stacked_decode.py); this
-file compares the port's stacked decode against alacjax's chained
-program, so no alacjax environment knob changes mid-process.  Layouts
-as alacjax's test: 3 and 6 channels at 16 bits here, 6 at 24 and 8 at
-32 bits in tests/test_torch_stacked_wide.py; S=256, B=6 frames from the
-scalar oracle encoder, one of them noise that escapes in every element,
-one partial.  Also here: the cursor's end bits against alacjax's
-cursor_scan and the oracle's bit counts, and the lane-to-row map (a
-stacked call equals its per-channel calls).
+Layouts as alacjax's tests/test_stacked_decode.py: 3 and 6 channels at
+16 bits here, 6 at 24 and 8 at 32 bits in
+tests/test_torch_multichannel_decode_wide.py; S=256, B=6 frames from
+the scalar oracle encoder, one of them noise that escapes in every
+element, one partial; the cursor (the Rice warp alone, on no codec
+path) on each channel decode's stream ends where that decode ends.
+Also here: the cursor's end bits against alacjax's cursor_scan and the
+oracle's bit counts, and the lane-to-row map (a stacked call equals its
+per-channel calls).
 """
 
 import numpy as np
@@ -25,6 +26,7 @@ from alacjax.oracle import ag as oag
 from alacjax.ops import fused_decode as jfd
 from alacjax.types import AlacConfig
 from alacjax_torch.codec import decode_frames_device
+from alacjax_torch.kernels import decode as k_decode
 from alacjax_torch.ops import bitpack
 from alacjax_torch.ops import fused_decode as tfd
 from conftest import gen_pcm
@@ -51,50 +53,74 @@ def _packets(nch: int, depth: int):
 
 
 def decode_all(nch: int, depth: int):
-    """(source pcm, the port's stacked, the port's chained, alacjax's
-    chained (pcm, err, num)) of one layout's packets, numpy."""
+    """(source pcm, the port's decode, alacjax's chained decode (pcm,
+    err, num), numpy; the port's channel decode calls as (args, kwargs,
+    outputs)) of one layout's packets."""
     cfg, pcm, words = _packets(nch, depth)
     w = torch.from_numpy(words.view(np.int32))
-    tcfg = torch_config(cfg)
-    stacked = [t.numpy() for t in decode_frames_device(w, tcfg, S,
-                                                       stacked=True)]
-    chained = [t.numpy() for t in decode_frames_device(w, tcfg, S)]
-    jax_chained = [np.asarray(t) for t in
-                   decode_frames_jit(jnp.asarray(words), cfg, S, 8)]
-    return pcm, stacked, chained, jax_chained
+    calls = []
+    real = k_decode.decode_channel
+
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+    k_decode.decode_channel = spy
+    try:
+        got = [t.numpy() for t in
+               decode_frames_device(w, torch_config(cfg), S)]
+    finally:
+        k_decode.decode_channel = real
+    want = [np.asarray(t) for t in
+            decode_frames_jit(jnp.asarray(words), cfg, S, 8)]
+    return pcm, got, want, calls
 
 
 def check_matches_jax(case):
-    _, stacked, _, want = case
-    for name, g, w in zip(("pcm", "err", "num"), stacked, want):
+    _, got, want, _ = case
+    for name, g, w in zip(("pcm", "err", "num"), got, want):
         np.testing.assert_array_equal(g, w, err_msg=name)
 
 
-def check_matches_chained_and_lossless(case):
-    pcm, stacked, chained, _ = case
-    for name, g, w in zip(("pcm", "err", "num"), stacked, chained):
-        np.testing.assert_array_equal(g, w, err_msg=name)
-    dec, err, num = stacked
+def check_lossless(case):
+    pcm, (dec, err, num), _, _ = case
     assert not err.any()
     np.testing.assert_array_equal(num, [S, S, PARTIAL, S, S, S])
     np.testing.assert_array_equal(dec, pcm)
 
 
-# 3 and 6 channels at 16 bits here; tests/test_torch_stacked_wide.py
-# holds 24-bit 5.1 and 32-bit 7.1 (one alacjax decode compile of 20-30 s
-# each, so the two files run side by side)
+def check_cursor_ends_where_each_channel_ends(case):
+    """The cursor on each channel decode's stream (its start bits, pb and
+    per-lane sample counts) ends where that decode ends on every lane
+    the decode does not flag, and flags none of them."""
+    *_, calls = case
+    assert calls
+    for args, kwargs, (_, end, err) in calls:
+        c_end, c_err = k_decode.cursor_scan(*args[:8], num=kwargs["num"])
+        assert torch.equal(c_end[~err], end[~err])
+        assert not (c_err & ~err).any()
+
+
+# 3 and 6 channels at 16 bits here;
+# tests/test_torch_multichannel_decode_wide.py holds 24-bit 5.1 and
+# 32-bit 7.1 (one alacjax decode compile of 20-30 s each, so the two
+# files run side by side)
 @pytest.fixture(scope="module", params=[(3, 16), (6, 16)],
                 ids=["3ch-16", "6ch-16"])
 def case(request):
     return decode_all(*request.param)
 
 
-def test_stacked_decode_matches_jax_chained(case):
+def test_decode_matches_jax_chained(case):
     check_matches_jax(case)
 
 
-def test_stacked_decode_matches_chained_and_is_lossless(case):
-    check_matches_chained_and_lossless(case)
+def test_decode_is_lossless(case):
+    check_lossless(case)
+
+
+def test_cursor_ends_where_each_channel_ends(case):
+    check_cursor_ends_where_each_channel_ends(case)
 
 
 def test_cursor_scan_end_bits_match_jax_and_oracle(rng):

@@ -15,9 +15,9 @@ wrong dtype, shape, device or size.
 
 The tests marked ``cuda`` hold the kernel to its plain version bit for
 bit on every field: every parse of decodes at 8 and 30 taps (max_ord 16
-and 30) through the chained and the stacked program, and crafted
-headers at per-lane starts, legal and corrupt (a wrong tag, unused bits,
-a bad bytes_shifted, den 0, an order above max_ord, order 31,
+and 30), and crafted headers at per-lane starts, legal and corrupt (a
+wrong tag, unused bits, a bad bytes_shifted, den 0, an order above
+max_ord, order 31,
 numSamples 0 or above S, elements that disagree on the frame length, an
 image shorter than the header window, random words); a decode
 launches the kernel once per element; and the "params" cut, which reads
@@ -263,17 +263,15 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("path", ["chained", "stacked"])
 @pytest.mark.parametrize("taps", [8, 30], ids=["max_ord16", "max_ord30"])
 @pytest.mark.parametrize("case", list(CASES))
-def test_kernel_equals_plain_in_decodes(cuda, parse_calls, case, taps, path):
+def test_kernel_equals_plain_in_decodes(cuda, parse_calls, case, taps):
     """Every parse of a card decode of the port's packets, against the
     plain version on the same arguments; the decode equal to the CPU's."""
     cfg, pcm, nums = frames(*CASES[case])
     words, _ = encode(cfg, pcm, nums, cuda)
     kernels.reset_launches()
-    out, err, num = codec.decode_frames_device(words, cfg, S, taps=taps,
-                                               stacked=path == "stacked")
+    out, err, num = codec.decode_frames_device(words, cfg, S, taps=taps)
     assert kernels.LAUNCHES["parse"] == len(cfg.elements) == len(parse_calls)
     assert torch.equal(out.cpu(), torch.from_numpy(pcm)) and not err.any()
     assert torch.equal(num.cpu(), torch.from_numpy(nums))

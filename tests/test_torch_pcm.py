@@ -8,8 +8,8 @@ and the port's decode through it equals alacjax's scalar decoder on
 the port's packets: mono, stereo, 5.1 and 7.1 at depths 16, 20, 24 and
 32 (bytes shifted 0, 1 and 2), with partial lanes, lanes where every
 element escapes or one does, and elements whose every lane escapes,
-through the chained and the stacked decode; the "nounesc" cut equals
-alacjax's.  The wrapper refuses a wrong dtype, shape or device.
+with the channel scans' walk at 8 and at 30 taps; the "nounesc" cut
+equals alacjax's.  The wrapper refuses a wrong dtype, shape or device.
 
 The tests marked ``cuda`` hold the kernel to its plain version bit for
 bit on the card: every element call of those decodes, and at B=4096
@@ -56,7 +56,6 @@ CASES = {
     "7.1-16-cpe-escapes": (8, 16, 1),
 }
 NOUNESC = (3, 24, 0)
-PATHS = ("chained", "stacked")
 
 
 def config(nch: int, depth: int, frame_length: int = S) -> AlacConfig:
@@ -140,15 +139,16 @@ def oracle():
     return decode
 
 
-@pytest.mark.parametrize("path", PATHS)
+@pytest.mark.parametrize("taps", [8, 30], ids=["chained", "taps30"])
 @pytest.mark.parametrize("case", list(CASES))
 def test_decode_through_plain_pcm_equals_alacjax(oracle, pcm_calls, case,
-                                                 path):
+                                                 taps):
+    """The 30-tap walk (``ffmpeg30.playback-hi``'s decode) gives these
+    frames' PCM too: their orders decode the same at any width."""
     calls, _ = pcm_calls
     cfg, pcm, nums = frames(*CASES[case])
     words, bits = encode(cfg, pcm, nums)
-    got, err, num = codec.decode_frames_device(words, cfg, S,
-                                               stacked=path == "stacked")
+    got, err, num = codec.decode_frames_device(words, cfg, S, taps=taps)
     want = oracle(cfg, words, bits)
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(got.numpy(), pcm)
@@ -265,7 +265,7 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [S, S - 3], ids=["4-samples", "1-sample"])
-@pytest.mark.parametrize("path", PATHS + ("nounesc",))
+@pytest.mark.parametrize("path", ["chained", "nounesc"])
 @pytest.mark.parametrize("case", list(CASES))
 def test_kernel_equals_plain_on_card(cuda, pcm_calls, case, path, n):
     """Frames of S samples take the kernel's four-samples-a-thread form,
@@ -273,8 +273,7 @@ def test_kernel_equals_plain_on_card(cuda, pcm_calls, case, path, n):
     calls, real = pcm_calls
     cfg, pcm, nums = frames(*CASES[case], n=n)
     words, _ = encode(cfg, pcm, nums)
-    kw = (dict(stop_at="nounesc") if path == "nounesc"
-          else dict(stacked=path == "stacked"))
+    kw = dict(stop_at="nounesc") if path == "nounesc" else {}
     want = codec.decode_frames_device(words, cfg, n, **kw)
     calls.clear()
     kernels.reset_launches()

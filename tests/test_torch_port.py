@@ -675,7 +675,7 @@ def test_decode_kernel_damaged_rows_on_card(cuda, B, S, taps):
 
 
 # ---------------------------------------------------------------------------
-# the decode kernel's stacked (row-mapped) launch, its cursor and raw
+# the decode kernel's row-mapped launch, its cursor and raw
 # instances, and per-lane chanbits 16..33, against their plain versions
 # ---------------------------------------------------------------------------
 # (L, S, rows): one row per lane, and lanes stacked 3 and 2 to a row
@@ -760,10 +760,10 @@ def test_cost_kernel_chanbits33_on_card(cuda, L, S):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("nch,depth", [(2, 16), (6, 24)])
-def test_stacked_decode_on_card(cuda, nch, depth):
-    """The cursor+stacked decode on the card equals the chained decode
-    (an escaped frame and a partial one among them), with one cursor
-    launch per channel but the last and one stacked decode launch."""
+def test_multichannel_decode_on_card(cuda, nch, depth):
+    """The oracle encoder's packets (an escaped frame and a partial one
+    among them) decode on the card as on the CPU, with one 8-tap launch
+    per channel and no cursor launch, and losslessly."""
     from alacjax_torch.oracle import ALACEncoder
     S = 256
     cfg = AlacConfig(bit_depth=depth, num_channels=nch, frame_length=S)
@@ -780,16 +780,15 @@ def test_stacked_decode_on_card(cuda, nch, depth):
     packets = [enc.encode_packet(f[:, :100] if b == 7 else f)
                for b, f in enumerate(pcm)]
     codec = TorchCodec(cfg, chunk=12, device="cuda")
-    stacked = TorchCodec(cfg, chunk=12, device="cuda", decode_stacked=True)
     words = torch.from_numpy(bitpack.bytes_to_words(
-        packets, codec.num_words).view(np.int32)).to(cuda)
-    want = codec._decode(words)
+        packets, codec.num_words).view(np.int32))
+    want = TorchCodec(cfg, chunk=12, device="cpu")._decode(words)
     kernels.reset_launches()
-    got = stacked._decode(words)
-    assert kernels.LAUNCHES["decode_cursor"] == nch - 1
-    assert kernels.LAUNCHES["decode"] == 1
+    got = codec._decode(words.to(cuda))
+    assert kernels.LAUNCHES["decode_cursor"] == 0
+    assert kernels.LAUNCHES["decode"] == nch
     _same(got, want)
-    out, nums = stacked.decode_frames_ex(packets)
-    assert stacked.fallback_frames == 0
+    out, nums = codec.decode_frames_ex(packets)
+    assert codec.fallback_frames == 0
     assert nums[7] == 100
     np.testing.assert_array_equal(out, pcm)

@@ -4,7 +4,7 @@ of the device program and the host API.
 Off, ``span`` hands out one shared no-op object and a whole encode and
 decode records nothing.  On, the names and nesting of one call are
 exactly the tree below, for a stereo and a 5.1 layout and for the
-chained and the stacked decode; the host API's spans nest under
+decode at 8 and at 30 taps; the host API's spans nest under
 ``api.encode`` / ``api.decode``, and ``api.ladder`` / ``api.oracle``
 open only for a chunk with flagged lanes (the retry ladder's streams of
 tests/test_torch_ladder.py, written with the port's own oracle).
@@ -63,20 +63,14 @@ def encode_tree(channels: int, cpes: int, assemble=()):
 ENCODE = encode_tree(2, 1)
 
 
-def decode_tree(widths, stacked: bool):
+def decode_tree(widths):
     """Per element (of ``widths`` channels each) its parse, flags
-    readback and scan; chained, its pcm right after; stacked, pass B's
-    scan and then every element's pcm.  The pcm kernel writes the call's
-    output, so nothing follows; its shift bytes take no int argument, so
-    no ``matrix.scalar.sync`` either."""
+    readback, scan and pcm, whatever the walk's width.  The pcm kernel
+    writes the call's output, so nothing follows; its shift bytes take
+    no int argument, so no ``matrix.scalar.sync`` either."""
     per = [leaf("decode.parse"), leaf("decode.flags.sync"),
-           leaf("decode.scan")]
-    pcm = [leaf("decode.pcm")] * len(widths)
-    if stacked:
-        kids = per * len(widths) + [leaf("decode.scan")] + pcm
-    else:
-        kids = [k for p in pcm for k in per + [p]]
-    return ("decode", kids)
+           leaf("decode.scan"), leaf("decode.pcm")]
+    return ("decode", per * len(widths))
 
 
 def tree(spans):
@@ -171,19 +165,18 @@ def test_encode_tree(recorder, cfg):
         assert {s[4] for s in inside} == {root[4]}
 
 
-@pytest.mark.parametrize("stacked", [False, True],
-                         ids=["chained", "stacked"])
+@pytest.mark.parametrize("taps", [8, 30], ids=["chained", "taps30"])
 @pytest.mark.parametrize("cfg", [STEREO16, SURROUND24],
                          ids=["stereo16", "surround24"])
-def test_decode_tree(recorder, cfg, stacked):
+def test_decode_tree(recorder, cfg, taps):
     pcm = frames(cfg, B, 4)
     words, _ = encode_device(cfg, pcm)
     recorder.drain()
-    out, err, _ = codec.decode_frames_device(words, cfg, S, stacked=stacked)
+    out, err, _ = codec.decode_frames_device(words, cfg, S, taps=taps)
     assert (out.numpy() == pcm).all() and not err.any()
     spans = recorder.drain()
     widths = [w for _, w in cfg.elements]
-    assert tree(spans) == [decode_tree(widths, stacked)]
+    assert tree(spans) == [decode_tree(widths)]
     assert sum(s[2] == "decode.flags.sync" for s in spans) == len(widths)
     assert {s[4] for s in spans} == {spans[0][4]}
 
@@ -252,13 +245,13 @@ def test_host_decode_spans_nest_under_api_decode(recorder, flagged):
     kids = [k[0] for k in root[1]]
     head = ["api.serdes", "api.copy_in", "decode", "api.unpack"]
     assert kids[:4] == head
-    assert root[1][2] == decode_tree([2], False)
+    assert root[1][2] == decode_tree([2])
     rest = {"none": [], "ladder": ["api.ladder"],
             "oracle": ["api.oracle"]}[flagged]
     assert kids[4:] == rest
     if flagged == "ladder":
         ladder = root[1][4][1]
-        rung = [decode_tree([2], False)] + [leaf("api.ladder.sync")] * 4
+        rung = [decode_tree([2])] + [leaf("api.ladder.sync")] * 4
         assert ladder == rung * 2
 
 

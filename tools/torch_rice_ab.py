@@ -11,10 +11,11 @@ card within one call.  On bench_torch.py's make_music corpus (B=4096
 stereo-16 frames of S=4096, the words of the checkout's own device
 encode) and on chip_smoke.py's 24-bit 5.1 signal (music_51, B=4096
 frames, encoded the same way), a checkout reports, for each decode
-kernel call of the chained stereo decode (two 8-tap launches), the
-stacked stereo and 5.1 decodes (the cursor launches and the stacked
-launch), rice_decode of the stereo frames' first channel (the raw
-instance), the first 8-tap call again at 16 and 30 taps, and that call
+kernel call of the stereo and 5.1 decodes (two and six 8-tap launches),
+the cursor instance (the Rice warp alone, on no codec path) on each of
+those calls' arguments, rice_decode of the stereo frames' first channel
+(the raw instance), the first 8-tap call again at 16 and 30 taps, and
+that call
 with every lane's order forced to 8, 16 and 30 at 8, 16 and 30 taps
 (the corpus's lanes are all of order 4, so only these walk at full
 width):
@@ -29,8 +30,7 @@ width):
     mix's share of the warps;
   - a hash of its outputs: equal hashes across checkouts mean identical
     outputs;
-then the whole stacked and chained decodes of both corpora in turns
-(card-clock ms per batch), ptxas's registers, spills and shared memory
+then ptxas's registers, spills and shared memory
 for csrc/decode.cu, and per decode kernel function its innermost SASS
 loops (chip_smoke.py :: sass_loops: size and shortest path in
 instructions; in a full decode's function, the FIR warp's step loops
@@ -56,7 +56,6 @@ from torch_legacy_ab import events_ms, smi
 
 B = 4096
 S = 4096
-TURNS = 3
 
 
 def digest(outs) -> str:
@@ -112,6 +111,7 @@ def child(root: str, sass_out: str | None = None) -> dict:
     import torch
     from alacjax_torch import AlacConfig, TorchCodec
     from alacjax_torch.kernels import _build
+    from alacjax_torch.kernels import decode as kd
     from bench_torch import make_music
     from chip_smoke import music_51, raw_drive, recording, sass_loops
 
@@ -139,18 +139,14 @@ def child(root: str, sass_out: str | None = None) -> dict:
                        sample_rate=48000)
     chained = TorchCodec(cfg, chunk=B, device="cuda")
     chained51 = TorchCodec(cfg51, chunk=B, device="cuda")
-    stacked = TorchCodec(cfg, chunk=B, device="cuda", decode_stacked=True)
-    stacked51 = TorchCodec(cfg51, chunk=B, device="cuda",
-                           decode_stacked=True)
     x = torch.from_numpy(make_music(B, S)).to("cuda")
     w4, _ = chained._encode(x)
     x51 = torch.from_numpy(music_51(B)).to("cuda")
     w51, _ = chained51._encode(x51)
     del x51
-    for c, w, ref in ((chained, w4, x), (stacked, w4, x)):
-        pcm, err, _ = c._decode(w)
-        if bool(err.any().item()) or not torch.equal(pcm, ref):
-            sys.exit("the stereo decode is not lossless")
+    pcm, err, _ = chained._decode(w4)
+    if bool(err.any().item()) or not torch.equal(pcm, x):
+        sys.exit("the stereo decode is not lossless")
 
     calls = []
 
@@ -158,11 +154,17 @@ def child(root: str, sass_out: str | None = None) -> dict:
         with recording([]) as rec:
             fn()
         for i, (name, wrapper, _, args, kwargs) in enumerate(rec):
-            calls.append((f"{label} {name} {i}", name, wrapper, args,
-                          kwargs))
+            if name.startswith("decode"):       # not the parse or the pcm
+                calls.append((f"{label} {name} {i}", name, wrapper, args,
+                              kwargs))
     record("chained stereo", lambda: chained._decode(w4))
-    record("stacked stereo", lambda: stacked._decode(w4))
-    record("stacked 5.1", lambda: stacked51._decode(w51))
+    record("chained 5.1", lambda: chained51._decode(w51))
+    # the Rice warp alone on each 8-tap call's stream: the Rice chain's
+    # time apart from the FIR walk
+    for label, _, _, args, kwargs in [c for c in calls if c[1] == "decode"]:
+        calls.append((label.replace(" decode ", " decode_cursor "),
+                      "decode_cursor", kd.cursor_scan, args[:8],
+                      dict(num=kwargs["num"])))
     record("rice_decode stereo", lambda: raw_drive(chained, w4))
     first = next(c for c in calls if c[1] == "decode")
     for taps in (16, 30):
@@ -208,19 +210,8 @@ def child(root: str, sass_out: str | None = None) -> dict:
                             mean=sum(v) / len(v), most=max(v))
                     for k, v in sorted(mix.items())}
         rows.append(row)
-
-    turns = {}
-    for label, ch, st, w in (("stereo", chained, stacked, w4),
-                             ("5.1", chained51, stacked51, w51)):
-        t = {"chained": [], "stacked": []}
-        for i in range(2 * TURNS):
-            which = ("chained", "stacked")[(i + i // 2) % 2]
-            fn = (ch if which == "chained" else st)._decode
-            t[which].append(events_ms(lambda: fn(w), reps=3))
-        t["stacked_over_chained"] = sum(t["stacked"]) / sum(t["chained"])
-        turns[label] = t
     return dict(dir=root, device=torch.cuda.get_device_name(0),
-                sm_clock_mhz=clock / 1e6, calls=rows, whole_decode_ms=turns,
+                sm_clock_mhz=clock / 1e6, calls=rows,
                 ptxas_decode=ptxas, sass_loops=loops,
                 sass_counts=sass_counts(sass))
 
