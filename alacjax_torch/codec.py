@@ -11,9 +11,10 @@ retry ladder.
 Encode dataflow (alacjax.codec._encode_packet_chunks, general branch):
 per-element shift-off -> stereo mode of every CPE (one dilated trial, 7
 candidate streams per CPE, order 8, one cost machine; fast mode takes a
-constant) -> mix -> one (order x stage) search over every channel of
-every element (one cost launch for every order; exhaustive mode
-searches all five mixes of each CPE and picks per element) ->
+constant) -> mix, written into the search's stacked input -> one (order
+x stage) search over every channel of every element (one cost launch
+for every order, one pick launch for every lane's winner; exhaustive
+mode searches all five mixes of each CPE and picks per element) ->
 closed-form element starts
 and per-element escape sizing -> headers as tiny token images, the
 shift-byte blocks as placed field packs -> one Rice emission over every
@@ -22,6 +23,9 @@ select -> merge kernel (scatter + tail OR) -> (B, W) word image.  The
 trial and the search price candidates with the fused cost kernel or,
 with ``predict_legacy``, with the standalone predictor kernel followed
 by the Rice cost kernel (alacjax's ALACJAX_PALLAS_PREDICT_LEGACY=1).
+The search's stream glue, the mixes (one launch for the trial's
+candidates of every CPE, one for the chosen streams) and the pick, is
+csrc/search.cu (kernels/search.py).
 
 Decode dataflow (alacjax.codec.decode_frames_device, chained branch),
 per element: one parse kernel launch (header, partial-frame field, mix
@@ -75,7 +79,8 @@ from .kernels import merge as k_merge
 from .kernels import parse as k_parse
 from .kernels import pcm as k_pcm
 from .kernels import predict as k_predict
-from .ops import bitpack, fused_decode, matrix, predict, rice
+from .kernels import search as k_search
+from .ops import bitpack, fused_decode, matrix, rice
 from .ops import parse as plain_parse
 from .ops.tutils import I32, I64, MASK32, as_i32_bits, iota1, u32
 from .state import init_coefs_batched
@@ -208,25 +213,20 @@ def _price(xs, c0s, orders, chanbits, num, config, dual: bool,
 def _mixres_select(cpe_pairs, chanbits: int, config, nums=None,
                    predict_legacy: bool = False):
     """Stereo mode of every CPE in one stacked dilated trial: 7 candidate
-    streams per CPE (L, R, U1..U4, the shared V), priced at order 8 with
-    fresh coefs over ceil(num / MIXRES_DILATE) samples per lane; per
-    element, argmin of the summed cost (first minimum wins).  Returns a
-    list of (B,) mixres selections."""
+    streams per CPE (L, R, U1..U4, the shared V; one mix launch for every
+    CPE), priced at order 8 with fresh coefs over ceil(num /
+    MIXRES_DILATE) samples per lane; per element, argmin of the summed
+    cost (first minimum wins).  Returns a list of (B,) mixres
+    selections."""
     B = cpe_pairs[0][0].shape[0]
     dev = cpe_pairs[0][0].device
     n_cand = (MAX_RES + 1) + 2
-    cand = []
-    for l_hi, r_hi in cpe_pairs:
-        ld = l_hi[:, ::MIXRES_DILATE]
-        rd = r_hi[:, ::MIXRES_DILATE]
-        cand += [ld, rd]                                 # mixres 0
-        cand += [matrix.mix(ld, rd, DEFAULT_MIX_BITS, mr)[0]
-                 for mr in range(1, MAX_RES + 1)]
-        cand.append(as_i32_bits(ld.to(I64) - rd.to(I64)))   # shared V
-    st = torch.cat(cand, dim=0).contiguous()
+    st = k_search.mix_trial([l for l, _ in cpe_pairs],
+                            [r for _, r in cpe_pairs], DEFAULT_MIX_BITS,
+                            MAX_RES, MIXRES_DILATE)
     nd = (None if nums is None
           else _tile_lanes((nums + MIXRES_DILATE - 1) // MIXRES_DILATE,
-                           len(cand)))
+                           n_cand * len(cpe_pairs)))
     with span("encode.mixres_trial"):
         _, c, _, _ = _price(st, init_coefs_batched(st.shape[0], dev),
                             (FAST_ORDER,), chanbits, nd, config, False,
@@ -238,24 +238,50 @@ def _mixres_select(cpe_pairs, chanbits: int, config, nums=None,
         dim=0) for e in range(len(cpe_pairs))]
 
 
-def _search_channels(streams, chanbits_list, config, nums=None,
+def _stack_streams(groups, B: int, S: int, dev):
+    """The search's stacked (W B, S) int32 input: per group, an element
+    and its mixres (an int or a per-lane (B,) tensor; None for an SCE),
+    the CPE's mixed pair (U, V) or the SCE's channel, B rows a stream;
+    every CPE's pair written by one mix launch.  Returns (the stack, the
+    first stream of each group)."""
+    W = sum(2 if e["is_cpe"] else 1 for e, _ in groups)
+    xs = torch.empty((W * B, S), dtype=I32, device=dev)
+    firsts, ls, rs, mrs, rows = [], [], [], [], []
+    w = 0
+    for e, mr in groups:
+        firsts.append(w)
+        if e["is_cpe"]:
+            ls.append(e["his"][0])
+            rs.append(e["his"][1])
+            mrs.append(mr)
+            rows.append(w * B)
+            w += 2
+        else:
+            xs[w * B:(w + 1) * B].copy_(e["his"][0])
+            w += 1
+    if ls:
+        k_search.mix_streams(ls, rs, mrs, DEFAULT_MIX_BITS, out=xs, rows=rows)
+    return xs, firsts
+
+
+def _search_channels(xs, chanbits_list, config, nums=None,
                      predict_legacy: bool = False, banks=None):
-    """Per-channel (order x stage) candidate search over every stacked
-    stream: one pricing call for every order, per-lane chanbits when SCE
-    and CPE channels mix.  Candidates (4,1),(4,2),(8,1),(8,2),
-    first minimum wins; fast mode prices order 8, stage 1 only.  Every
-    order starts from the fresh coefficients or, with ``banks`` (one
-    {order: (B, 16)} dict per stream), from its own bank.  Returns
-    per-stream lists (res, order, mode, rice_bits, coefs0_win — the
-    winning order's starting coefficients — and {order: adapted
-    coefs})."""
-    B = streams[0].shape[0]
-    dev = streams[0].device
+    """Per-channel (order x stage) candidate search over the stacked
+    streams ``xs`` ((W B, S), one stream per entry of ``chanbits_list``):
+    one pricing call for every order, per-lane chanbits when SCE and CPE
+    channels mix, then one pick launch for every lane.  Candidates
+    (4,1),(4,2),(8,1),(8,2), first minimum wins; fast mode prices order
+    8, stage 1 only.  Every order starts from the fresh coefficients or,
+    with ``banks`` (one {order: (B, 16)} dict per stream), from its own
+    bank.  Returns per-stream lists (res, order, mode, rice_bits,
+    coefs0_win — the winning order's starting coefficients — and
+    {order: adapted coefs})."""
+    W = len(chanbits_list)
+    B = xs.shape[0] // W
+    dev = xs.device
     fast = config.fast_mode
     orders = [FAST_ORDER] if fast else list(SEARCH_ORDERS)
     stages = [1] if fast else list(SEARCH_STAGES)
-    W = len(streams)
-    xs = torch.cat(streams, dim=0).contiguous()
     if banks is None:
         c0s = init_coefs_batched(W * B, dev)
     else:
@@ -267,45 +293,20 @@ def _search_channels(streams, chanbits_list, config, nums=None,
         res_o, c1_o, c2_o, coefs_o = _price(
             xs, c0s, tuple(orders), cb_all, num_all, config,
             len(stages) > 1, predict_legacy)
-    by_order = {od: (res_o[i], c1_o[i], None if c2_o is None else c2_o[i])
-                for i, od in enumerate(orders)}
+    res, sel = k_search.pick(res_o, c1_o, c2_o, orders, cb_all)
     res_l, order_l, mode_l, rice_l, c0_l, adapted_l = [], [], [], [], [], []
     for ci in range(W):
         sl = slice(ci * B, (ci + 1) * B)
-        cand_costs, cand_rice = [], []
-        for od in orders:
-            _, c1, c2 = by_order[od]
-            for rc in ([c1[sl]] if c2 is None else [c1[sl], c2[sl]]):
-                cand_costs.append(16 + 16 * od + rc.to(I64))
-                cand_rice.append(rc.to(I64))
-        win = torch.argmin(torch.stack(cand_costs, dim=0), dim=0)
-        rice_win = torch.gather(torch.stack(cand_rice, dim=0), 0,
-                                win[None, :])[0]
-        order_win = torch.full((B,), orders[0], dtype=I64, device=dev)
-        mode_win = torch.zeros((B,), dtype=I64, device=dev)
-        for ki in range(len(cand_costs)):
-            od, stg = orders[ki // len(stages)], stages[ki % len(stages)]
-            hit = win == ki
-            order_win = torch.where(hit, od, order_win)
-            # two-stage mode is written as 15 on the wire (the reference
-            # encoder's value)
-            mode_win = torch.where(hit, 0 if stg == 1 else 15, mode_win)
-        res_win = by_order[orders[0]][0][sl]
+        order_win = sel[0, sl]
         c0_win = c0s[sl] if banks is None else banks[ci][orders[0]]
-        for od in orders[1:]:
-            sel = (order_win == od)[:, None]
-            res_win = torch.where(sel, by_order[od][0][sl], res_win)
-            if banks is not None:
-                c0_win = torch.where(sel, banks[ci][od], c0_win)
-        if len(stages) > 1:
-            res_win = torch.where((mode_win != 0)[:, None],
-                                  predict.wrap_diff(res_win,
-                                                    chanbits_list[ci]),
-                                  res_win)
-        res_l.append(res_win.to(I32).contiguous())
+        if banks is not None:
+            for od in orders[1:]:
+                c0_win = torch.where((order_win == od)[:, None],
+                                     banks[ci][od], c0_win)
+        res_l.append(res[sl])
         order_l.append(order_win)
-        mode_l.append(mode_win)
-        rice_l.append(rice_win)
+        mode_l.append(sel[1, sl])
+        rice_l.append(sel[2, sl])
         c0_l.append(c0_win)
         adapted_l.append({od: coefs_o[i][sl] for i, od in enumerate(orders)})
     return res_l, order_l, mode_l, rice_l, c0_l, adapted_l
@@ -315,10 +316,11 @@ def _select_standard(elems, config, nums, predict_legacy: bool,
                      banks=None, mix_only: bool = False) -> None:
     """Stereo mode of every CPE (the dilated trial, or fast mode's
     constant; both with fresh coefficients), the mixed streams of every
-    element (``e["streams"]``; ``mix_only`` stops there), then one search
-    over every channel of every element, each channel's orders starting
-    from its banks when ``banks`` is given."""
-    B = elems[0]["chans"][0].shape[0]
+    element (``e["streams"]``, row views of the search's stacked input;
+    ``mix_only`` stops there), then one search over every channel of
+    every element, each channel's orders starting from its banks when
+    ``banks`` is given."""
+    B, S = elems[0]["chans"][0].shape
     dev = elems[0]["chans"][0].device
     cpes = [e for e in elems if e["is_cpe"]]
     if config.fast_mode:
@@ -331,23 +333,22 @@ def _select_standard(elems, config, nums, predict_legacy: bool,
                               predict_legacy)
         for e, sel in zip(cpes, sels):
             e["mixres"] = sel
-    streams, cbs = [], []
-    for e in elems:
-        if e["is_cpe"]:
-            e["streams"] = list(matrix.mix(e["his"][0], e["his"][1],
-                                           DEFAULT_MIX_BITS,
-                                           e["mixres"][:, None]))
-        else:
+    xs, firsts = _stack_streams(
+        [(e, (FAST_MIX_RES if config.fast_mode else e["mixres"])
+          if e["is_cpe"] else None) for e in elems], B, S, dev)
+    cbs = []
+    for e, w in zip(elems, firsts):
+        if not e["is_cpe"]:
             e["mixres"] = torch.zeros((B,), dtype=I64, device=dev)
-            e["streams"] = [e["his"][0]]
-        streams += e["streams"]
+        e["streams"] = [xs[(w + i) * B:(w + i + 1) * B]
+                        for i in range(e["width"])]
         cbs += [e["chanbits"]] * e["width"]
     if mix_only:
         return
     stream_banks = None if banks is None else [
         banks[e["ch0"] + i] for e in elems for i in range(e["width"])]
     res, orders, modes, rice_bits, c0_win, adapted = _search_channels(
-        streams, cbs, config, nums, predict_legacy, stream_banks)
+        xs, cbs, config, nums, predict_legacy, stream_banks)
     ci = 0
     for e in elems:
         sl = slice(ci, ci + e["width"])
@@ -359,26 +360,22 @@ def _select_standard(elems, config, nums, predict_legacy: bool,
 
 def _select_exhaustive(elems, config, nums, predict_legacy: bool) -> None:
     """Every (mixres x order x stage) candidate of every channel in one
-    stacked search (10 streams per CPE, no dilated trial); per CPE, the
-    mixres whose two channels cost least in total (first minimum
-    wins)."""
-    B = elems[0]["chans"][0].shape[0]
+    stacked search (10 streams per CPE, written by one mix launch at a
+    constant mixres each; no dilated trial); per CPE, the mixres whose
+    two channels cost least in total (first minimum wins)."""
+    B, S = elems[0]["chans"][0].shape
     dev = elems[0]["chans"][0].device
-    streams, cbs = [], []
+    groups, cbs = [], []
     for e in elems:
-        e["slots"] = []
         for mr in range(MAX_RES + 1 if e["is_cpe"] else 1):
-            e["slots"].append(len(streams))
-            if e["is_cpe"]:
-                streams += matrix.mix(e["his"][0], e["his"][1],
-                                      DEFAULT_MIX_BITS, mr)
-            else:
-                streams.append(e["his"][0])
+            groups.append((e, mr if e["is_cpe"] else None))
             cbs += [e["chanbits"]] * e["width"]
+    xs, firsts = _stack_streams(groups, B, S, dev)
     res, orders, modes, rice_bits, c0_win, _ = _search_channels(
-        streams, cbs, config, nums, predict_legacy)
+        xs, cbs, config, nums, predict_legacy)
     for e in elems:
-        slots, w = e["slots"], e["width"]
+        slots = [s for (g, _), s in zip(groups, firsts) if g is e]
+        w = e["width"]
         # fresh coefficients on every slot: any slot's rows will do
         e["coefs0_win"] = c0_win[slots[0]:slots[0] + w]
         if not e["is_cpe"]:

@@ -51,6 +51,28 @@ __device__ __forceinline__ int sext_sh(int x, unsigned sh) {
 
 __device__ __forceinline__ int sign_of(int x) { return (x > 0) - (x < 0); }
 
+// V (1 or 4) neighbouring int32 values: a 16-byte load or store where V
+// is 4 (the pointer 16-byte aligned), else one value
+template <int V>
+__device__ __forceinline__ void load_v(int (&x)[V], const int* p) {
+    if constexpr (V == 4) {
+        const int4 t = __ldg(reinterpret_cast<const int4*>(p));
+        x[0] = t.x; x[1] = t.y; x[2] = t.z; x[3] = t.w;
+    } else {
+        x[0] = __ldg(p);
+    }
+}
+
+template <int V>
+__device__ __forceinline__ void store_v(int* p, const int (&x)[V]) {
+    if constexpr (V == 4)
+        *reinterpret_cast<int4*>(p) = make_int4(x[0], x[1], x[2], x[3]);
+    else
+        p[0] = x[0];
+}
+
+inline bool aligned16(const void* p) { return ((size_t)p & 15) == 0; }
+
 // Word i of a (B, W) word image's row as bitpack.extract_segment reads
 // it: 0 past W, word 0 before 0.
 __device__ __forceinline__ unsigned image_word(const unsigned* row,

@@ -49,24 +49,6 @@ struct PcmArgs {
     int W, S, C, c0, bs, depth, unescape, sblocks;
 };
 
-template <int V>
-__device__ __forceinline__ void load_v(int (&x)[V], const int* p) {
-    if constexpr (V == 4) {
-        const int4 t = __ldg(reinterpret_cast<const int4*>(p));
-        x[0] = t.x; x[1] = t.y; x[2] = t.z; x[3] = t.w;
-    } else {
-        x[0] = p[0];
-    }
-}
-
-template <int V>
-__device__ __forceinline__ void store_v(int* p, const int (&x)[V]) {
-    if constexpr (V == 4)
-        *reinterpret_cast<int4*>(p) = make_int4(x[0], x[1], x[2], x[3]);
-    else
-        p[0] = x[0];
-}
-
 // V samples a thread (1 or 4); BS the bytes shifted where V = 4 (V = 1
 // reads a.bs at run time).
 template <int WIDTH, int V, int BS>
@@ -169,8 +151,6 @@ int launch_width(const PcmArgs& a, int B, bool vec, cudaStream_t st) {
         default: return launch_pcm<WIDTH, 4, 2>(a, B, st);
     }
 }
-
-inline bool aligned16(const void* p) { return ((size_t)p & 15) == 0; }
 
 }  // namespace alac
 

@@ -6,8 +6,12 @@ channel decode at 8 taps, and at 16/30 taps as ``decode_hi``, one
 channel or stacked channels; its Rice warp alone as ``decode_cursor``,
 end bits only and on no codec path, and ``decode_raw``, the residuals),
 predict (the standalone predictor), rice_cost (its second, cost-only
-pass), parse (the decode's per-element header parse) and pcm (the
-decode's unmix, shift bytes, escape select and tail mask).
+pass), parse (the decode's per-element header parse), pcm (the
+decode's unmix, shift bytes, escape select and tail mask) and search
+(the encode search's stream glue: ``search_mix``, the stereo mixes of
+every CPE, the mixres trial's candidates or the chosen streams;
+``search_pick``, each searched lane's winning order, stage and residual
+row).
 A wrapper checks its inputs, allocates its outputs, and for CUDA tensors
 launches its kernel (or raises — there is no fallback); for CPU tensors
 it runs the plain torch version from ``alacjax_torch.ops``.  Every
@@ -25,7 +29,8 @@ from . import _build
 
 LAUNCHES = {"cost": 0, "emit": 0, "merge": 0, "decode": 0, "decode_hi": 0,
             "decode_cursor": 0, "decode_raw": 0, "predict": 0,
-            "rice_cost": 0, "parse": 0, "pcm": 0}
+            "rice_cost": 0, "parse": 0, "pcm": 0, "search_mix": 0,
+            "search_pick": 0}
 
 
 def reset_launches() -> None:

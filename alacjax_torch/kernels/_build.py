@@ -44,6 +44,8 @@ SIGNATURES = {
     "alac_decode_raw": [_P] * 9 + [_I] * 5 + [_U, _I, _U, _P],
     "alac_parse": [_P] * 7 + [_I] * 8 + [_P],
     "alac_pcm": [_P] * 10 + [_I] * 9 + [_P],
+    "alac_search_mix": [_P] * 5 + [_I] * 8 + [_P],
+    "alac_search_pick": [_P] * 6 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()

@@ -231,11 +231,19 @@ REPLACES = {
     # and the decode's per-element unmix, shift_in and escape select, then
     # the stack of the channels and the tail mask (XLA glue in alacjax)
     "pcm": "alacjax/codec.py:1336",
+    # the encode search's stream glue (XLA in alacjax): the mixres trial's
+    # candidate streams and each CPE's chosen mix, then each stream's
+    # winning order, stage and residual row
+    "search_mix": "alacjax/codec.py:109",
+    "search_pick": "alacjax/codec.py:159",
 }
 SOURCES = {name: f"alacjax_torch/csrc/{name}.cu" for name in REPLACES}
 for _name in ("decode_hi", "decode_cursor", "decode_raw"):
     SOURCES[_name] = SOURCES["decode"]         # instances of csrc/decode.cu
 SOURCES["rice_cost"] = SOURCES["predict"]      # its cost-only pass
+SEARCHES = ("search_mix", "search_pick")
+for _name in SEARCHES:
+    SOURCES[_name] = "alacjax_torch/csrc/search.cu"
 DECODES = ("decode", "decode_hi", "decode_cursor", "decode_raw")
 # (wrapper module, wrapper, its plain version, LAUNCHES key); the decode
 # wrapper's key follows its tap count and raw mode
@@ -252,22 +260,28 @@ WRAPPERS = (
      "rice_cost"),
     ("alacjax_torch.kernels.parse", "parse_element", "plain", "parse"),
     ("alacjax_torch.kernels.pcm", "element_pcm", "plain", "pcm"),
+    ("alacjax_torch.kernels.search", "mix_trial", "plain_mix_trial",
+     "search_mix"),
+    ("alacjax_torch.kernels.search", "mix_streams", "plain_mix_streams",
+     "search_mix"),
+    ("alacjax_torch.kernels.search", "pick", "plain_pick", "search_pick"),
 )
+ENCODES = ("cost", "emit", "merge", "search_mix", "search_pick")
 PATH_KERNELS = {         # the kernels each path must launch
-    "phase 4": ("cost", "emit", "merge", "decode", "parse", "pcm"),
+    "phase 4": ENCODES + ("decode", "parse", "pcm"),
     "phase 5": ("decode", "parse", "pcm"),
     "phase 6": ("decode", "decode_hi", "parse", "pcm"),
-    "phase 7": ("cost", "emit", "merge"),
-    "phase 8": ("predict", "rice_cost", "emit", "merge"),
-    "phase 9": ("cost", "emit", "merge", "decode", "parse", "pcm"),
-    "phase 10": ("cost", "emit", "merge", "decode", "parse", "pcm"),
-    "phase 11": ("cost", "emit", "merge", "decode", "parse", "pcm"),
+    "phase 7": ENCODES,
+    "phase 8": ("predict", "rice_cost", "emit", "merge", "search_mix",
+                "search_pick"),
+    "phase 9": ENCODES + ("decode", "parse", "pcm"),
+    "phase 10": ENCODES + ("decode", "parse", "pcm"),
+    "phase 11": ENCODES + ("decode", "parse", "pcm"),
     "phase 12": ("decode", "decode_cursor", "parse", "pcm"),
     "phase 12 raw": ("decode_raw",),
-    "phase 13": ("cost", "emit", "merge", "decode", "decode_hi", "parse",
-                 "pcm"),
-    "phase 14": ("cost", "emit", "merge", "decode", "parse", "pcm"),
-    "phase 14 bench": ("cost", "emit", "merge", "decode", "parse", "pcm"),
+    "phase 13": ENCODES + ("decode", "decode_hi", "parse", "pcm"),
+    "phase 14": ENCODES + ("decode", "parse", "pcm"),
+    "phase 14 bench": ENCODES + ("decode", "parse", "pcm"),
 }
 HBM_BYTES_PER_S = 3.35e12    # one H100 SXM's device memory rate
 # Lane operations one Hopper SM issues per clock: four schedulers, each
@@ -443,6 +457,8 @@ def work(call, got, counts):
         return pcm_bytes(wrapper, args, kwargs), 0, nbytes(outs) // 4
     if name == "parse":
         return parse_bytes(wrapper, args, kwargs, outs), 0, args[0].shape[0]
+    if name in SEARCHES:
+        return search_bytes(wrapper, args, outs), 0, nbytes(outs[:1]) // 4
     a = inspect.signature(wrapper).bind(*args, **kwargs)
     a.apply_defaults()
     a = a.arguments
@@ -517,6 +533,21 @@ def pcm_bytes(wrapper, args, kwargs) -> int:
                                    "mixbits", "mixres")])
     return (width * S * (4 * B + stream * (B - n_esc))
             + n_esc * width * S * a["depth"] // 8 + lanes)
+
+
+def search_bytes(wrapper, args, outs) -> int:
+    """The bytes a search call must move.  A mix: each CPE's two channels
+    read whole (the trial's reads at every 4th sample touch every 32-byte
+    sector), a per-lane mixres once, every output row written once.  A
+    pick: every candidate cost and the per-lane chanbits read, the
+    winning residual row read and written, the (3, L) selection written."""
+    if wrapper.__name__ != "pick":
+        lanes = [m for m in (args[2] if wrapper.__name__ == "mix_streams"
+                             else ()) if hasattr(m, "shape")]
+        return nbytes(list(args[0]) + list(args[1]) + lanes) + nbytes(outs)
+    _, cost1, cost2, _, chanbits = args[:5]
+    return (nbytes([cost1, cost2, chanbits]) + 2 * nbytes(outs[:1])
+            + nbytes(outs[1:]))
 
 
 def parse_bytes(wrapper, args, kwargs, outs) -> int:
@@ -605,9 +636,11 @@ def recording(calls, keep=None):
             name = _key or _mod.counter(
                 kwargs.get("taps", _mod.fused_decode.TAPS),
                 kwargs.get("raw", False))
-            # the pcm kernel writes into the caller's output: its call is
-            # kept without it, so a replay returns a tensor of its own
-            kept = {k: v for k, v in kwargs.items() if k not in ("out", "c0")}
+            # the pcm and mix kernels write into the caller's output: a
+            # call is kept without it, so a replay returns a tensor of its
+            # own
+            kept = {k: v for k, v in kwargs.items()
+                    if k not in ("out", "c0", "rows")}
             call = (name, _fn, getattr(_mod, _plain), args, kept)
             call = call if keep is None else keep(call)
             if call is not None:
@@ -641,6 +674,8 @@ def signature(call):
             return ("lane", "mixed" if bool((v.min() != v.max()).item())
                     else "uniform")
         return ("lane", v.dim())
+    if name in SEARCHES:
+        return search_signature(call)
     if name in DECODES:
         head = (name, ("lanes per row", args[1].shape[0] // args[0].shape[0]))
     elif name == "pcm":
@@ -651,6 +686,51 @@ def signature(call):
         head = (name, tuple(args[0].shape[1:]))
     return (head + tuple(map(part, args[1:]))
             + tuple((k, part(v)) for k, v in sorted(kwargs.items())))
+
+
+def search_signature(call):
+    """A search call's signature: the wrapper, the sample count, the
+    pairs of a mix and each one's mixres (a value, or per-lane), a pick's
+    orders, stages and chanbits (a value, or per-lane uniform or mixed)."""
+    name, wrapper, _, args, _ = call
+    if wrapper.__name__ == "pick":
+        res, _, cost2, orders, cb = args[:5]
+        if hasattr(cb, "shape"):
+            cb = ("lane", "mixed" if bool((cb.min() != cb.max()).item())
+                  else "uniform")
+        return (name, "pick", res.shape[2], tuple(orders), cost2 is not None,
+                cb)
+    if wrapper.__name__ == "mix_trial":
+        return (name, "trial", args[0][0].shape[1], len(args[0])) + args[2:]
+    return (name, "streams", args[0][0].shape[1],
+            tuple("lane" if hasattr(m, "shape") else m for m in args[2]),
+            args[3])
+
+
+def search_cut(call, lanes: int):
+    """A search call on ``lanes`` lanes spread evenly over its lanes (so
+    every stream of a pick keeps some, and a mixed chanbits stays mixed),
+    every tensor copied."""
+    import torch
+    name, wrapper, plain, args, kwargs = call
+    pick = wrapper.__name__ == "pick"
+    L = args[0].shape[1] if pick else args[0][0].shape[0]
+    idx = torch.linspace(0, L - 1, min(lanes, L),
+                         device="cpu").round().long().unique()
+
+    def cut(v, axis=0):
+        if isinstance(v, (list, tuple)):
+            return type(v)(cut(x, axis) for x in v)
+        if not hasattr(v, "shape"):
+            return v
+        return v.index_select(axis, idx.to(v.device)).contiguous()
+    if pick:
+        res, c1, c2, orders, cb = args[:5]
+        args = (cut(res, 1), cut(c1, 1), None if c2 is None else cut(c2, 1),
+                orders, cut(cb)) + tuple(args[5:])
+    else:
+        args = tuple(cut(a) for a in args)
+    return (name, wrapper, plain, args, dict(kwargs))
 
 
 def one_per_signature(calls, seen=None):
@@ -678,6 +758,9 @@ def prefix(call, n: int, lanes: int | None = None):
     import numpy as np
     import torch
     name, wrapper, plain, args, kwargs = call
+    if name in SEARCHES:
+        return (call if lanes is None else search_cut(call, lanes)), \
+            lanes is not None
     was_cut = True
     if name in DECODES:
         if args[2] <= n:
@@ -747,6 +830,17 @@ def describe(name: str, args, kwargs) -> str:
             parts.append("no streams")
         if kwargs.get("unescape", True):
             parts.append("escape select")
+    elif name == "search_mix":
+        parts = [f"{len(args[0])} pairs"]
+        if len(args) == 5:
+            parts.append(f"trial mixres 1..{args[3]} dilate {args[4]}")
+        else:
+            parts.append("mixres " + ",".join(
+                "lane" if hasattr(m, "shape") else str(m) for m in args[2]))
+    elif name == "search_pick":
+        parts = [f"orders {tuple(args[3])}",
+                 "stages 1,2" if args[2] is not None else "stage 1",
+                 f"chanbits {v(args[4])}"]
     elif name in DECODES:
         parts = ([f"taps {kwargs['taps']}"] if name in ("decode", "decode_hi")
                  else [])
@@ -805,6 +899,11 @@ def host_plain(plain, args, kwargs, got):
     return worst, ms
 
 
+def first_tensor(args):
+    """A call's first tensor argument (a mix's first channel)."""
+    return args[0][0] if isinstance(args[0], (list, tuple)) else args[0]
+
+
 def compare_kernels(calls, rows, int_ops_per_s: float = 0.0,
                     cut: bool = False, pool=None):
     """Each recorded call through its kernel and through its plain
@@ -820,6 +919,8 @@ def compare_kernels(calls, rows, int_ops_per_s: float = 0.0,
     import torch
 
     def host(v):
+        if isinstance(v, (list, tuple)):
+            return type(v)(map(host, v))
         return v.cpu() if isinstance(v, torch.Tensor) else v
     jobs = []
     for call in calls:
@@ -836,14 +937,14 @@ def compare_kernels(calls, rows, int_ops_per_s: float = 0.0,
         ms, plain_ms, err, bound_ms, bytes_ms, ops_ms, per = against_plain(
             call, int_ops_per_s)
         row = rows[name]
-        shape = "x".join(str(d) for d in args[0].shape)
+        shape = "x".join(str(d) for d in first_tensor(args).shape)
         note = ""
         if was_cut:
             full_ms, _, full_err, full_bound, full_bytes, full_ops, _ = \
                 against_plain(whole, int_ops_per_s)
             err = max(err, full_err)
             note = (f"   [first {PREFIX} samples; kernel on the whole "
-                    f"{'x'.join(map(str, whole[3][0].shape))}: "
+                    f"{'x'.join(map(str, first_tensor(whole[3]).shape))}: "
                     f"{full_ms:.4f} ms, bound {full_bound:.4f} ms (bytes "
                     f"{full_bytes:.4f}, operations {full_ops:.4f}), "
                     f"max_abs_err {full_err}]")
@@ -865,7 +966,9 @@ def compare_kernels(calls, rows, int_ops_per_s: float = 0.0,
         row["ops_ms"] += ops_ms
     for name, args, kwargs, ms, job in jobs:
         err, plain_ms = job.result()
-        lanes = args[1].shape[0] if name in DECODES else args[0].shape[0]
+        lanes = (args[1].shape[0] if name in DECODES
+                 else args[0].shape[1] if name == "search_pick"
+                 else first_tensor(args).shape[0])
         print(f"  {name:9s} new signature on {lanes} lanes "
               f"{describe(name, args, kwargs)}: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.1f} ms on a host core, max_abs_err {err}",

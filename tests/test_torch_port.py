@@ -192,7 +192,8 @@ def test_cpu_tensors_take_the_plain_version(rng):
         assert torch.equal(g, w)
     assert kernels.LAUNCHES == dict.fromkeys(
         ("cost", "emit", "merge", "decode", "decode_hi", "decode_cursor",
-         "decode_raw", "predict", "rice_cost", "parse", "pcm"), 0)
+         "decode_raw", "predict", "rice_cost", "parse", "pcm", "search_mix",
+         "search_pick"), 0)
 
 
 def test_other_devices_raise_instead_of_falling_back(rng):
@@ -486,7 +487,8 @@ def test_51_encode_on_card(cuda, predict_legacy):
     packets = codec.encode_frames_ex(pcm, nums)
     used = [k for k, v in kernels.LAUNCHES.items() if v]
     assert used == (["emit", "merge", "predict", "rice_cost"] if predict_legacy
-                    else ["cost", "emit", "merge"]), kernels.LAUNCHES
+                    else ["cost", "emit", "merge"]) + [
+        "search_mix", "search_pick"], kernels.LAUNCHES
     enc = ALACEncoder(cfg, independent_frames=True)
     assert packets == [enc.encode_packet(f[:, :n]) for f, n in zip(pcm, nums)]
 

@@ -141,6 +141,16 @@ def test_syncs_dispatch_and_stage_device_ms():
     assert got["self_device_ms"]["(no port span)"] == pytest.approx(0.0075)
     assert got["self_host_ms"]["decode.scan"] == pytest.approx(0.120)
     assert "search_ms.encode" not in got
+    assert "search_ops" not in got
+
+
+def test_a_stages_own_device_ms_op_by_op():
+    t = read_trace(port_spans())
+    assert t.self_device_ops("decode.scan") == {
+        "decode_kernel<8>": [pytest.approx(0.090), 1.0]}
+    assert t.self_device_ops("decode.parse") == {
+        "parse_op": [pytest.approx(0.030), 1.0]}
+    assert t.self_device_ops("encode.search") == {}
 
 
 def test_idle_gaps_name_the_innermost_span_of_either_list():

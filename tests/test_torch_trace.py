@@ -11,7 +11,9 @@ tests/test_torch_ladder.py, written with the port's own oracle).
 
 The ``cuda`` test holds the syncs that torch's sync debug mode reports
 in one call of each benchmark cell's shape to that call's ``*.sync``
-spans; on a machine with the card:
+spans, and an encode's to its count (3 a stereo encode, 8 a 5.1 one:
+``matrix.scalar.sync`` in ``encode.prep`` alone); on a machine with the
+card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_trace.py
 """
@@ -47,14 +49,13 @@ SCALAR = leaf("matrix.scalar.sync")
 
 
 def encode_tree(channels: int, cpes: int, assemble=()):
-    """The shift-off of every channel and the trial's four mixes of
-    every CPE take int arguments (two each), the search's mix of each
-    CPE its mixBits; on the card a layout of SCEs and CPEs also reads
-    its emission's cap back (``emit.cap.sync``)."""
+    """The shift-off of every channel takes an int argument; the search's
+    mixes take theirs as kernel arguments, so it waits on nothing; on the
+    card a layout of SCEs and CPEs also reads its emission's cap back
+    (``emit.cap.sync``)."""
     return ("encode", [
         ("encode.prep", [SCALAR] * channels),
-        ("encode.search", [SCALAR] * (8 * cpes)
-         + [leaf("encode.mixres_trial")] + [SCALAR] * cpes
+        ("encode.search", [leaf("encode.mixres_trial")] * (cpes > 0)
          + [leaf("encode.predict_cost")]),
         leaf("encode.sizing"), leaf("encode.flags.sync"),
         leaf("encode.rice_words"), ("encode.assemble", list(assemble))])
@@ -260,13 +261,15 @@ def test_host_decode_spans_nest_under_api_decode(recorder, flagged):
 # ---------------------------------------------------------------------------
 CELLS = {
     # cd16.ingest, cd16.playback, surround24.playback; and the 5.1 encode,
-    # whose per-lane bit sizes read the emission's cap back
-    "cd16.encode": (2, 16, 44100, "encode"),
-    "cd16.decode": (2, 16, 44100, "decode"),
-    "surround24.decode": (6, 24, 48000, "decode"),
-    "surround24.encode": (6, 24, 48000, "encode"),
-    # full-scale noise: every lane escapes (the all-escape assembly)
-    "noise16.encode": (2, 16, 44100, "encode"),
+    # whose per-lane bit sizes read the emission's cap back; the syncs an
+    # encode waits on: a shift-off's per channel, the flags', the cap's
+    "cd16.encode": (2, 16, 44100, "encode", 3),
+    "cd16.decode": (2, 16, 44100, "decode", None),
+    "surround24.decode": (6, 24, 48000, "decode", None),
+    "surround24.encode": (6, 24, 48000, "encode", 8),
+    # full-scale noise: every lane escapes (the all-escape assembly, which
+    # copies its escape row to the card)
+    "noise16.encode": (2, 16, 44100, "encode", 4),
 }
 
 
@@ -296,7 +299,7 @@ def music(n: int, nch: int, depth: int, device, noise: bool = False):
 @pytest.mark.cuda
 @pytest.mark.parametrize("cell", list(CELLS))
 def test_sync_warnings_equal_sync_spans_on_card(cuda, cell):
-    nch, depth, rate, what = CELLS[cell]
+    nch, depth, rate, what, n_syncs = CELLS[cell]
     cfg = AlacConfig(bit_depth=depth, num_channels=nch, frame_length=4096,
                      sample_rate=rate)
     x = music(4096, nch, depth, cuda, noise=cell.startswith("noise"))
@@ -332,5 +335,9 @@ def test_sync_warnings_equal_sync_spans_on_card(cuda, cell):
     print(f"[trace] {cell}: {len(syncs)} sync warnings {where}; "
           f"{len(sync_spans)} sync spans {sync_spans}")
     assert len(syncs) == len(sync_spans), (where, sync_spans)
+    if what == "encode":
+        assert len(sync_spans) == n_syncs, sync_spans
+        scalar = [s for s in spans if s[2] == "matrix.scalar.sync"]
+        assert all(spans[s[3]][2] == "encode.prep" for s in scalar)
     if what == "decode":
         assert (out[0] == x).all() and not out[1].any()

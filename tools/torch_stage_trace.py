@@ -20,6 +20,8 @@ line ``{"stages": ...}``:
   descendants (``search_ms.encode`` is ``encode.search``'s, and so on);
 - ``self_device_ms`` / ``self_host_ms``: per call, the device ms launched
   with each stage innermost, and each stage's host ms less its children's;
+- ``search_ops``: per encode call, ``encode.search``'s own device ms
+  and launches, op by op (kernel name), its largest twelve;
 - ``attributed`` / ``device_rows``: the window's device rows whose launch
   lies inside a port span, of all.
 
@@ -198,6 +200,19 @@ class StageTrace(trace.Trace):
         return {k: v / self.calls / 1e6 for k, v in
                 sorted(out.items(), key=lambda kv: -kv[1])}
 
+    def self_device_ops(self, stage: str, top: int = 12) -> dict:
+        """Per call, the device ms of each op (by kernel name, cut to 80
+        characters) launched with ``stage`` innermost: its ``top`` largest
+        and their launches per call."""
+        ms, n = {}, {}
+        for (s, e, name), i in zip(self.device, self.launched_in):
+            if i is not None and self.program[i][2] == stage:
+                key = name[:80]
+                ms[key] = ms.get(key, 0) + (e - s)
+                n[key] = n.get(key, 0) + 1
+        rows = sorted(ms.items(), key=lambda kv: -kv[1])[:top]
+        return {k: [v / self.calls / 1e6, n[k] / self.calls] for k, v in rows}
+
     def self_host_ms(self) -> dict:
         own = [s[1] - s[0] for s in self.program]
         for i, p in enumerate(self.parent):
@@ -247,6 +262,8 @@ def stages(t: StageTrace) -> dict:
             out[name] = t.stage_device_ms(stage)
     out["self_device_ms"] = t.self_device_ms()
     out["self_host_ms"] = t.self_host_ms()
+    if t.tops("encode"):
+        out["search_ops"] = t.self_device_ops("encode.search")
     return out
 
 
