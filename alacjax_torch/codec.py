@@ -285,8 +285,11 @@ def _search_channels(xs, chanbits_list, config, nums=None,
     if banks is None:
         c0s = init_coefs_batched(W * B, dev)
     else:
-        c0s = torch.stack([torch.cat([banks[ci][od] for ci in range(W)])
-                           for od in orders])
+        # one block per order, every stream's bank in stream order
+        with span("encode.banks"):
+            c0s = torch.stack([banks[ci][od] for od in orders
+                               for ci in range(W)]).view(len(orders), W * B,
+                                                         kALACMaxCoefs)
     cb_all = _lane_chanbits(chanbits_list, B, dev)
     num_all = _tile_lanes(nums, W)
     with span("encode.predict_cost"):
@@ -294,20 +297,21 @@ def _search_channels(xs, chanbits_list, config, nums=None,
             xs, c0s, tuple(orders), cb_all, num_all, config,
             len(stages) > 1, predict_legacy)
     res, sel = k_search.pick(res_o, c1_o, c2_o, orders, cb_all)
+    c0_all = c0s
+    if banks is not None:
+        # the winning order's starting coefficients, lane by lane
+        with span("encode.banks"):
+            c0_all = c0s[0]
+            for i, od in enumerate(orders[1:], 1):
+                c0_all = torch.where((sel[0] == od)[:, None], c0s[i], c0_all)
     res_l, order_l, mode_l, rice_l, c0_l, adapted_l = [], [], [], [], [], []
     for ci in range(W):
         sl = slice(ci * B, (ci + 1) * B)
-        order_win = sel[0, sl]
-        c0_win = c0s[sl] if banks is None else banks[ci][orders[0]]
-        if banks is not None:
-            for od in orders[1:]:
-                c0_win = torch.where((order_win == od)[:, None],
-                                     banks[ci][od], c0_win)
         res_l.append(res[sl])
-        order_l.append(order_win)
+        order_l.append(sel[0, sl])
         mode_l.append(sel[1, sl])
         rice_l.append(sel[2, sl])
-        c0_l.append(c0_win)
+        c0_l.append(c0_all[sl])
         adapted_l.append({od: coefs_o[i][sl] for i, od in enumerate(orders)})
     return res_l, order_l, mode_l, rice_l, c0_l, adapted_l
 
@@ -642,16 +646,17 @@ def _encode_packet_chunks(pcm, config: AlacConfig, num_words: int,
         if banks is not None:
             # the oracle's commit rule: the winning order's bank takes the
             # adapted coefficients unless the element escaped
-            new_banks = dict(banks)
-            for e in elems:
-                for ci in range(e["width"]):
-                    chan = e["ch0"] + ci
-                    upd = dict(banks[chan])
-                    for od, coefs in e["adapted"][ci].items():
-                        take = ~e["use_escape"] & (e["orders"][ci] == od)
-                        upd[od] = torch.where(take[:, None], coefs,
-                                              banks[chan][od])
-                    new_banks[chan] = upd
+            with span("encode.banks"):
+                new_banks = dict(banks)
+                for e in elems:
+                    for ci in range(e["width"]):
+                        chan = e["ch0"] + ci
+                        # 0, an order no bank has, where the element escaped
+                        won = torch.where(e["use_escape"], 0,
+                                          e["orders"][ci])[:, None]
+                        new_banks[chan] = {
+                            od: torch.where(won == od, coefs, banks[chan][od])
+                            for od, coefs in e["adapted"][ci].items()}
     if stop_at == "search":
         return [e["res"] for e in elems], total_c
 
@@ -859,29 +864,52 @@ def encode_frames_device(pcm, config: AlacConfig, num_words: int, nums=None,
 
 
 def encode_stream_device(pcm, config: AlacConfig, num_words: int,
+                         banks=None, fresh=None,
                          predict_legacy: bool = False):
     """Persistent-coefficient stream encode (alacjax.codec.
-    encode_stream_device; reference: ALACEncoder.cpp's mCoefsU/V
-    surviving across packets): (B, N, C, S) planar int32, B independent
-    streams of N full frames each -> ((B, N, W) int32 word images,
-    (B, N) int32 total bits).  A loop over the N packets carries the
-    banks as device tensors, so the packets of a stream chain exactly
-    as the stateful encoders' do while the streams stay data-parallel;
-    the bank update adds no host sync."""
+    encode_stream_device; reference: ALACEncoder.cpp's mCoefsU/V, kept
+    across the Encode() calls of one file): (B, N, C, S) planar int32,
+    N full frames of each of B lanes -> ((B, N, W) int32 word images,
+    (B, N) int32 total bits, the banks after packet N-1).  A loop over
+    the N packets carries the banks as device tensors, so the packets of
+    a lane chain exactly as the stateful encoders' do while the lanes
+    stay data-parallel.
+
+    ``banks`` ({channel: {order: (B, 16) int32}}, as returned; None:
+    fresh for every lane) resumes the lanes where an earlier call left
+    them.  ``fresh`` ((B, N) bool on the device) starts a new track: where
+    ``fresh[:, t]`` is set, that lane's banks of every channel and order
+    are the fresh coefficients before packet t.  Neither the carry nor
+    the reset waits for the card."""
     B, N = pcm.shape[:2]
+    dev = pcm.device
     orders = [FAST_ORDER] if config.fast_mode else list(SEARCH_ORDERS)
-    init0 = init_coefs_batched(B, pcm.device)
-    banks = {ch: {od: init0 for od in orders}
-             for ch in range(config.num_channels)}
+    init0 = init_coefs_batched(1, dev)
+    if banks is None:
+        banks = {ch: {od: init0.expand(B, -1) for od in orders}
+                 for ch in range(config.num_channels)}
+    _check_banks(banks, config, B)
+    if fresh is not None and (fresh.dtype != torch.bool
+                              or tuple(fresh.shape) != (B, N)
+                              or fresh.device != dev):
+        raise AlacParamError(f"fresh must be a ({B}, {N}) bool tensor on "
+                             f"{dev}")
     words, bits = [], []
-    for t in range(N):
-        with span("encode"):
-            w, b, banks = _encode_packet_chunks(
-                pcm[:, t].contiguous(), config, num_words,
-                predict_legacy=predict_legacy, banks=banks)
-        words.append(w)
-        bits.append(b)
-    return torch.stack(words, dim=1), torch.stack(bits, dim=1)
+    with span("encode.stream"):
+        for t in range(N):
+            if fresh is not None:
+                with span("encode.banks"):
+                    reset = fresh[:, t, None]
+                    banks = {ch: {od: torch.where(reset, init0, bank)
+                                  for od, bank in by.items()}
+                             for ch, by in banks.items()}
+            with span("encode"):
+                w, b, banks = _encode_packet_chunks(
+                    pcm[:, t].contiguous(), config, num_words,
+                    predict_legacy=predict_legacy, banks=banks)
+            words.append(w)
+            bits.append(b)
+        return torch.stack(words, dim=1), torch.stack(bits, dim=1), banks
 
 
 def encode_streams(pcm: np.ndarray, config: AlacConfig,
@@ -898,7 +926,7 @@ def encode_streams(pcm: np.ndarray, config: AlacConfig,
         raise AlacParamError(f"encode_streams takes (B, N, {want[0]}, "
                              f"{want[1]}) PCM, not {pcm.shape}")
     x = torch.from_numpy(pcm.astype(np.int32)).to(dev)
-    words, bits = encode_stream_device(x, config, _num_words(config))
+    words, bits, _ = encode_stream_device(x, config, _num_words(config))
     words, bits = words.cpu().numpy(), bits.cpu().numpy()
     return [bitpack.words_to_bytes(words[b], bits[b])
             for b in range(words.shape[0])]

@@ -1912,15 +1912,15 @@ def streams(cfg, cfg51, codec, codec51, pcm, counts, main4,
     torch.cuda.reset_peak_memory_stats()
     with path_run("phase 10", counts):
         t0 = time.perf_counter()
-        words, bits = encode_stream_device(x, cfg, codec.num_words)
+        words, bits, _ = encode_stream_device(x, cfg, codec.num_words)
         packets = stream_packets(words, bits)
         enc_s = time.perf_counter() - t0
         del words, bits
         t0 = time.perf_counter()
         out, nums = codec.decode_frames_ex(packets)
         dec_s = time.perf_counter() - t0
-        packets51 = stream_packets(*encode_stream_device(x51, cfg51,
-                                                         codec51.num_words))
+        packets51 = stream_packets(*encode_stream_device(
+            x51, cfg51, codec51.num_words)[:2])
         out51, nums51 = codec51.decode_frames_ex(packets51)
     n_pk = len(packets)
     if codec.fallback_frames or codec51.fallback_frames:

@@ -6,9 +6,10 @@ Device rows are put down to the port span open at the start of the
 runtime row that shares their correlation id (a row launched outside
 every port span to none); the per-call sync count, the dispatch time
 and the device ms of a stage; the idle gaps labelled by the innermost
-span, the benchmark's or the port's; and each of the benchmark's
-per-layer readers reads the same on the trace with the port's spans as
-on the trace without them.
+span, the benchmark's or the port's; a stream call's packet steps and
+the device ms of its ``encode.banks`` spans a step; and each of the
+benchmark's per-layer readers reads the same on the trace with the
+port's spans as on the trace without them.
 """
 
 import os
@@ -174,10 +175,51 @@ def test_innermost_takes_the_inner_of_two_spans_opened_together():
         "inner", "outer", "later", "outer", None]
 
 
+class StreamTracer:
+    """One benchmark call holding one stream call of two packet steps:
+    per step the banks' reset, then an encode with a cost launch and,
+    inside it, a bank commit."""
+
+    def __init__(self):
+        ev, program, corr = [], [], 100
+        program.append((60 * US, 860 * US, "encode.stream", None, 0, 1))
+        for base in (70 * US, 470 * US):
+            program.append((base, base + 20 * US, "encode.banks", 0, 0, 1))
+            enc = len(program)
+            program.append((base + 20 * US, base + 380 * US, "encode", 0, 0,
+                            1))
+            program.append((base + 100 * US, base + 120 * US, "encode.banks",
+                            enc, 0, 1))
+            for t, kern, dur in ((base + 5 * US, "where_op", 5 * US),
+                                 (base + 50 * US, "cost_tiled<true>",
+                                  50 * US),
+                                 (base + 105 * US, "where_op", 7 * US)):
+                ev += launch("cudaLaunchKernel", kern, t, dur, corr)
+                corr += 1
+        self.prof = Prof(ev)
+        self.spans = [(0, 1000 * US, "window"), (50 * US, 900 * US, "call")]
+        self.program = program
+
+
+def test_stream_steps_and_banks_ms():
+    t = st.StageTrace(StreamTracer(), calls=2, bounds={})
+    got = st.stages(t)
+    assert got["steps"] == 2.0
+    # (5 + 7) us of the banks' ops a step
+    assert got["banks_ms.stream"] == pytest.approx(0.012)
+    assert got["host_syncs.encode"] == 0.0
+    assert t.stage_device_ms("encode.banks") == pytest.approx(0.012)
+    assert t.self_device_ops("encode") == {
+        "cost_tiled<true>": [pytest.approx(0.050), 1.0]}
+    # no stream call: neither readout
+    plain = st.stages(read_trace(port_spans()))
+    assert "steps" not in plain and "banks_ms.stream" not in plain
+
+
 @pytest.mark.parametrize("name", [
     "glue_ms.decode", "glue_ms.encode", "launches.decode", "launches.encode",
     "cost_roofline", "decode_roofline", "idle_share.decode",
-    "idle_share.encode"])
+    "idle_share.encode", "host_ms.ingest", "readbacks.encode"])
 def test_benchmark_readers_read_the_same_with_port_spans(name):
     reader = manifest.load_module(os.path.join(manifest.BENCH_DIR, "metrics",
                                                name + ".py"))

@@ -4,7 +4,10 @@ of the device program and the host API.
 Off, ``span`` hands out one shared no-op object and a whole encode and
 decode records nothing.  On, the names and nesting of one call are
 exactly the tree below, for a stereo and a 5.1 layout and for the
-decode at 8 and at 30 taps; the host API's spans nest under
+decode at 8 and at 30 taps, and for a stream call (``encode.stream``:
+per packet step the banks' reset and an ``encode`` whose search and
+sizing gather and commit the banks in ``encode.banks``); the host
+API's spans nest under
 ``api.encode`` / ``api.decode``, and ``api.ladder`` / ``api.oracle``
 open only for a chunk with flagged lanes (the retry ladder's streams of
 tests/test_torch_ladder.py, written with the port's own oracle).
@@ -179,6 +182,37 @@ def test_decode_tree(recorder, cfg, taps):
     widths = [w for _, w in cfg.elements]
     assert tree(spans) == [decode_tree(widths)]
     assert sum(s[2] == "decode.flags.sync" for s in spans) == len(widths)
+    assert {s[4] for s in spans} == {spans[0][4]}
+
+
+def stream_tree(steps: int, fresh: bool):
+    """One encode_stream_device call: per packet step the banks' reset
+    (with ``fresh``) and one encode whose search gathers each order's
+    banks and the winner's, and whose sizing commits them."""
+    banks = leaf("encode.banks")
+    enc = ("encode", [
+        ("encode.prep", [SCALAR] * 2),
+        ("encode.search", [leaf("encode.mixres_trial"), banks,
+                           leaf("encode.predict_cost"), banks]),
+        ("encode.sizing", [banks]), leaf("encode.flags.sync"),
+        leaf("encode.rice_words"), ("encode.assemble", [])])
+    return ("encode.stream", ([banks] * fresh + [enc]) * steps)
+
+
+@pytest.mark.parametrize("fresh", [False, True], ids=["resumed", "fresh"])
+def test_stream_tree(recorder, fresh):
+    cfg = STEREO16
+    x = torch.from_numpy(frames(cfg, 2 * B, 8).astype(np.int32)).view(
+        B, 2, 2, S)
+    nw = codec._num_words(cfg)
+    _, _, banks = codec.encode_stream_device(x, cfg, nw)
+    recorder.drain()
+    mask = torch.zeros((B, 2), dtype=torch.bool)
+    mask[::3, 1] = True
+    codec.encode_stream_device(x, cfg, nw, banks=banks,
+                               fresh=mask if fresh else None)
+    spans = recorder.drain()
+    assert tree(spans) == [stream_tree(2, fresh)]
     assert {s[4] for s in spans} == {spans[0][4]}
 
 

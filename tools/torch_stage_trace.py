@@ -22,6 +22,9 @@ line ``{"stages": ...}``:
   with each stage innermost, and each stage's host ms less its children's;
 - ``search_ops``: per encode call, ``encode.search``'s own device ms
   and launches, op by op (kernel name), its largest twelve;
+- ``steps``: packet steps (``encode`` spans) per ``encode.stream`` call,
+  and ``banks_ms.stream``: device ms per packet step launched inside
+  ``encode.banks`` (the banks' reset, per-order gather and commit);
 - ``attributed`` / ``device_rows``: the window's device rows whose launch
   lies inside a port span, of all.
 
@@ -192,6 +195,23 @@ class StageTrace(trace.Trace):
                  if i is not None and stage in self.names_up(i))
         return ns / self.calls / 1e6
 
+    def stream_steps(self):
+        """The ``encode`` spans inside an ``encode.stream``, and the
+        number of ``encode.stream`` spans."""
+        streams = self.tops("encode.stream")
+        steps = [i for i in self.tops("encode")
+                 if "encode.stream" in self.names_up(i)]
+        return steps, len(streams)
+
+    def banks_ms(self):
+        """Device ms per stream packet step launched inside
+        ``encode.banks``."""
+        steps, _ = self.stream_steps()
+        ms = self.stage_device_ms("encode.banks")
+        if not steps or ms is None:
+            return None
+        return ms * self.calls / len(steps)
+
     def self_device_ms(self) -> dict:
         out = {}
         for (s, e, _), i in zip(self.device, self.launched_in):
@@ -264,6 +284,10 @@ def stages(t: StageTrace) -> dict:
     out["self_host_ms"] = t.self_host_ms()
     if t.tops("encode"):
         out["search_ops"] = t.self_device_ops("encode.search")
+    steps, streams = t.stream_steps()
+    if streams:
+        out["steps"] = len(steps) / streams
+        out["banks_ms.stream"] = t.banks_ms()
     return out
 
 
