@@ -11,7 +11,8 @@ decode's unmix, shift bytes, escape select and tail mask) and search
 (the encode search's stream glue: ``search_mix``, the stereo mixes of
 every CPE, the mixres trial's candidates or the chosen streams;
 ``search_pick``, each searched lane's winning order, stage and residual
-row).
+row) and assemble (the encode's chunk image: every element's header
+tokens, shift-byte block and Rice rows, the escape select, the tails).
 A wrapper checks its inputs, allocates its outputs, and for CUDA tensors
 launches its kernel (or raises — there is no fallback); for CPU tensors
 it runs the plain torch version from ``alacjax_torch.ops``.  Every
@@ -30,7 +31,7 @@ from . import _build
 LAUNCHES = {"cost": 0, "emit": 0, "merge": 0, "decode": 0, "decode_hi": 0,
             "decode_cursor": 0, "decode_raw": 0, "predict": 0,
             "rice_cost": 0, "parse": 0, "pcm": 0, "search_mix": 0,
-            "search_pick": 0}
+            "search_pick": 0, "assemble": 0}
 
 
 def reset_launches() -> None:

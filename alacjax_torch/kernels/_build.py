@@ -46,6 +46,7 @@ SIGNATURES = {
     "alac_pcm": [_P] * 10 + [_I] * 9 + [_P],
     "alac_search_mix": [_P] * 5 + [_I] * 8 + [_P],
     "alac_search_pick": [_P] * 6 + [_I] * 6 + [_P],
+    "alac_assemble": [_P] * 12 + [_I] * 10 + [_P],
 }
 
 _lock = threading.Lock()

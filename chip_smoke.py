@@ -236,6 +236,10 @@ REPLACES = {
     # winning order, stage and residual row
     "search_mix": "alacjax/codec.py:109",
     "search_pick": "alacjax/codec.py:159",
+    # the encode's chunk assembly (XLA glue in alacjax): every element's
+    # header tokens, shift-byte block and Rice rows, the escape select,
+    # the tails and the END tag
+    "assemble": "alacjax/codec.py:696",
 }
 SOURCES = {name: f"alacjax_torch/csrc/{name}.cu" for name in REPLACES}
 for _name in ("decode_hi", "decode_cursor", "decode_raw"):
@@ -265,15 +269,16 @@ WRAPPERS = (
     ("alacjax_torch.kernels.search", "mix_streams", "plain_mix_streams",
      "search_mix"),
     ("alacjax_torch.kernels.search", "pick", "plain_pick", "search_pick"),
+    ("alacjax_torch.kernels.assemble", "chunks", "plain", "assemble"),
 )
-ENCODES = ("cost", "emit", "merge", "search_mix", "search_pick")
+ENCODES = ("cost", "emit", "merge", "search_mix", "search_pick", "assemble")
 PATH_KERNELS = {         # the kernels each path must launch
     "phase 4": ENCODES + ("decode", "parse", "pcm"),
     "phase 5": ("decode", "parse", "pcm"),
     "phase 6": ("decode", "decode_hi", "parse", "pcm"),
     "phase 7": ENCODES,
     "phase 8": ("predict", "rice_cost", "emit", "merge", "search_mix",
-                "search_pick"),
+                "search_pick", "assemble"),
     "phase 9": ENCODES + ("decode", "parse", "pcm"),
     "phase 10": ENCODES + ("decode", "parse", "pcm"),
     "phase 11": ENCODES + ("decode", "parse", "pcm"),
@@ -459,6 +464,8 @@ def work(call, got, counts):
         return parse_bytes(wrapper, args, kwargs, outs), 0, args[0].shape[0]
     if name in SEARCHES:
         return search_bytes(wrapper, args, outs), 0, nbytes(outs[:1]) // 4
+    if name == "assemble":
+        return assemble_bytes(args, outs), 0, nbytes(outs[:1]) // 4
     a = inspect.signature(wrapper).bind(*args, **kwargs)
     a.apply_defaults()
     a = a.arguments
@@ -548,6 +555,42 @@ def search_bytes(wrapper, args, outs) -> int:
     _, cost1, cost2, _, chanbits = args[:5]
     return (nbytes([cost1, cost2, chanbits]) + 2 * nbytes(outs[:1])
             + nbytes(outs[1:]))
+
+
+def assemble_bytes(args, outs) -> int:
+    """The bytes an assemble call must move: every output written once;
+    per element and lane, where the lane compressed its channels' Rice
+    rows (word and key, 8 bytes a slot) and tails, its shift-byte rows
+    to its sample count (4 bytes a sample) and its order's coefficients,
+    where it escaped its samples to its sample count (4 bytes each); the
+    per-lane fields once."""
+    import torch
+    from alacjax_torch.oracle.encoder import bytes_shifted_for_depth
+    elems, emitted, total_c, cfg, nums = args
+    B, S = total_c.shape[0], cfg.frame_length
+    bs = bytes_shifted_for_depth(cfg.bit_depth)
+    R = 0 if emitted is None else emitted[0].shape[1]
+    nl = (torch.full((B,), S, dtype=torch.int64, device=total_c.device)
+          if nums is None else nums.to(torch.int64))
+    moved = nbytes(outs) + nbytes([total_c, nums])
+    for e in elems:
+        w = e["width"]
+        esc = (torch.ones_like(nl, dtype=torch.bool) if emitted is None
+               else e["use_escape"] if e["any_escape"]
+               else torch.zeros_like(nl, dtype=torch.bool))
+        moved += 4 * w * int(nl[esc].sum().item()) + nbytes([e["start"]])
+        if emitted is None:
+            continue
+        comp = ~esc
+        n_comp = int(comp.sum().item())
+        moved += n_comp * w * (8 * R + 8)
+        if bs:
+            moved += 4 * w * int(nl[comp].sum().item())
+        orders = sum(o[comp].sum() for o in e["orders"])
+        moved += 4 * int(orders.item()) + nbytes(
+            [e["mixres"] if w == 2 else None, *e["orders"], *e["modes"],
+             e["use_escape"] if e["any_escape"] else None])
+    return moved
 
 
 def parse_bytes(wrapper, args, kwargs, outs) -> int:
@@ -676,6 +719,8 @@ def signature(call):
         return ("lane", v.dim())
     if name in SEARCHES:
         return search_signature(call)
+    if name == "assemble":
+        return assemble_signature(call)
     if name in DECODES:
         head = (name, ("lanes per row", args[1].shape[0] // args[0].shape[0]))
     elif name == "pcm":
@@ -705,6 +750,54 @@ def search_signature(call):
     return (name, "streams", args[0][0].shape[1],
             tuple("lane" if hasattr(m, "shape") else m for m in args[2]),
             args[3])
+
+
+def assemble_signature(call):
+    """An assemble call's signature: the sample count, the depth, whether
+    per-lane sample counts are given and uniform, each element's width
+    and form (compressed, with the escape select, or escape only)."""
+    _, _, _, args, _ = call
+    elems, emitted, _, cfg, nums = args
+    if nums is not None:
+        nums = "mixed" if bool((nums.min() != nums.max()).item()) \
+            else "uniform"
+    forms = tuple((e["width"], "escape" if emitted is None
+                   else "select" if e["any_escape"] else "compressed")
+                  for e in elems)
+    return ("assemble", cfg.frame_length, cfg.bit_depth, nums, forms)
+
+
+def assemble_cut(call, lanes: int):
+    """An assemble call on ``lanes`` lanes spread evenly over its lanes
+    (each escaping element's escaped lanes first, so a select stays a
+    select), every tensor copied: each element's per-lane rows, and each
+    channel's block of B rows of the Rice emission."""
+    import torch
+    name, wrapper, plain, args, kwargs = call
+    elems, emitted, total_c, cfg, nums = args
+    B = total_c.shape[0]
+    dev = total_c.device
+    first = []
+    for e in elems:
+        if emitted is not None and e["any_escape"]:
+            first += e["use_escape"].nonzero()[:4, 0].tolist()
+    spread = torch.linspace(0, B - 1, min(lanes, B)).round().long().tolist()
+    idx = torch.tensor(sorted(set(first + spread))[:lanes], device=dev)
+
+    def cut(v):
+        if isinstance(v, (list, tuple)):
+            return type(v)(cut(x) for x in v)
+        if isinstance(v, torch.Tensor) and v.dim() and v.shape[0] == B:
+            return v.index_select(0, idx).contiguous()
+        return v
+    new = [{k: cut(v) for k, v in e.items()} for e in elems]
+    if emitted is not None:
+        rows = torch.cat([c * B + idx for c in range(
+            sum(e["width"] for e in elems))])
+        emitted = tuple(t.index_select(0, rows).contiguous()
+                        for t in emitted)
+    args = (new, emitted, cut(total_c), cfg, cut(nums))
+    return (name, wrapper, plain, args, dict(kwargs))
 
 
 def search_cut(call, lanes: int):
@@ -760,6 +853,9 @@ def prefix(call, n: int, lanes: int | None = None):
     name, wrapper, plain, args, kwargs = call
     if name in SEARCHES:
         return (call if lanes is None else search_cut(call, lanes)), \
+            lanes is not None
+    if name == "assemble":
+        return (call if lanes is None else assemble_cut(call, lanes)), \
             lanes is not None
     was_cut = True
     if name in DECODES:
@@ -837,6 +933,14 @@ def describe(name: str, args, kwargs) -> str:
         else:
             parts.append("mixres " + ",".join(
                 "lane" if hasattr(m, "shape") else str(m) for m in args[2]))
+    elif name == "assemble":
+        elems, emitted, _, cfg, nums = args
+        parts = [f"S {cfg.frame_length} depth {cfg.bit_depth}",
+                 "elements " + ",".join(
+                     f"{e['width']}{'e' if emitted is None else 's' if e['any_escape'] else ''}"
+                     for e in elems)]
+        if nums is not None:
+            parts.append("num lane")
     elif name == "search_pick":
         parts = [f"orders {tuple(args[3])}",
                  "stages 1,2" if args[2] is not None else "stage 1",
@@ -900,8 +1004,10 @@ def host_plain(plain, args, kwargs, got):
 
 
 def first_tensor(args):
-    """A call's first tensor argument (a mix's first channel)."""
-    return args[0][0] if isinstance(args[0], (list, tuple)) else args[0]
+    """A call's first tensor argument (a mix's first channel, an
+    assembly's first channel of samples)."""
+    x = args[0][0] if isinstance(args[0], (list, tuple)) else args[0]
+    return x["chans"][0] if isinstance(x, dict) else x
 
 
 def compare_kernels(calls, rows, int_ops_per_s: float = 0.0,
@@ -921,6 +1027,8 @@ def compare_kernels(calls, rows, int_ops_per_s: float = 0.0,
     def host(v):
         if isinstance(v, (list, tuple)):
             return type(v)(map(host, v))
+        if isinstance(v, dict):
+            return {k: host(x) for k, x in v.items()}
         return v.cpu() if isinstance(v, torch.Tensor) else v
     jobs = []
     for call in calls:

@@ -193,7 +193,7 @@ def test_cpu_tensors_take_the_plain_version(rng):
     assert kernels.LAUNCHES == dict.fromkeys(
         ("cost", "emit", "merge", "decode", "decode_hi", "decode_cursor",
          "decode_raw", "predict", "rice_cost", "parse", "pcm", "search_mix",
-         "search_pick"), 0)
+         "search_pick", "assemble"), 0)
 
 
 def test_other_devices_raise_instead_of_falling_back(rng):
@@ -488,7 +488,7 @@ def test_51_encode_on_card(cuda, predict_legacy):
     used = [k for k, v in kernels.LAUNCHES.items() if v]
     assert used == (["emit", "merge", "predict", "rice_cost"] if predict_legacy
                     else ["cost", "emit", "merge"]) + [
-        "search_mix", "search_pick"], kernels.LAUNCHES
+        "search_mix", "search_pick", "assemble"], kernels.LAUNCHES
     enc = ALACEncoder(cfg, independent_frames=True)
     assert packets == [enc.encode_packet(f[:, :n]) for f, n in zip(pcm, nums)]
 

@@ -143,6 +143,7 @@ def test_syncs_dispatch_and_stage_device_ms():
     assert got["self_host_ms"]["decode.scan"] == pytest.approx(0.120)
     assert "search_ms.encode" not in got
     assert "search_ops" not in got
+    assert "assemble_ops" not in got
 
 
 def test_a_stages_own_device_ms_op_by_op():
@@ -152,6 +153,7 @@ def test_a_stages_own_device_ms_op_by_op():
     assert t.self_device_ops("decode.parse") == {
         "parse_op": [pytest.approx(0.030), 1.0]}
     assert t.self_device_ops("encode.search") == {}
+    assert t.self_device_ops("encode.assemble") == {}
 
 
 def test_idle_gaps_name_the_innermost_span_of_either_list():

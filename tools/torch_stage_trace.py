@@ -20,8 +20,9 @@ line ``{"stages": ...}``:
   descendants (``search_ms.encode`` is ``encode.search``'s, and so on);
 - ``self_device_ms`` / ``self_host_ms``: per call, the device ms launched
   with each stage innermost, and each stage's host ms less its children's;
-- ``search_ops``: per encode call, ``encode.search``'s own device ms
-  and launches, op by op (kernel name), its largest twelve;
+- ``search_ops`` / ``assemble_ops``: per encode call, ``encode.search``'s
+  and ``encode.assemble``'s own device ms and launches, op by op (kernel
+  name), the largest twelve of each;
 - ``steps``: packet steps (``encode`` spans) per ``encode.stream`` call,
   and ``banks_ms.stream``: device ms per packet step launched inside
   ``encode.banks`` (the banks' reset, per-order gather and commit);
@@ -284,6 +285,7 @@ def stages(t: StageTrace) -> dict:
     out["self_host_ms"] = t.self_host_ms()
     if t.tops("encode"):
         out["search_ops"] = t.self_device_ops("encode.search")
+        out["assemble_ops"] = t.self_device_ops("encode.assemble")
     steps, streams = t.stream_steps()
     if streams:
         out["steps"] = len(steps) / streams
