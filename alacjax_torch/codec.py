@@ -48,9 +48,12 @@ Each ``lax.cond`` of the reference is a Python ``if`` on a flag read
 back from the device, one readback for all of the flags known at the
 same point: the encode's after the search (every lane escaped; per
 element, any lane escaped), the decode's after each element's parse
-(every lane and any lane escaped), through ``utils.metrics.readback``;
-each stage of the encode, the decode and the host API sits in a
-``utils.metrics.span`` (README, "Tracing").  Tensors live on the
+(every lane and any lane escaped, with the counts of escaped lanes and
+of lanes whose header carries a sample count), through
+``utils.metrics.readback``; each stage of the encode, the decode and
+the host API sits in a ``utils.metrics.span``, and the decode records
+its lanes and those counts with ``utils.metrics.count`` (README,
+"Tracing").  Tensors live on the
 codec's device; the kernel wrappers launch CUDA kernels for CUDA
 tensors and run the plain torch versions for CPU tensors.  The encoder's
 word images travel as int32 bit patterns (empty keys -1).
@@ -87,7 +90,7 @@ from .ops import assemble as plain_assemble
 from .ops import parse as plain_parse
 from .ops.tutils import I32, I64, as_i32_bits, u32
 from .state import init_coefs_batched
-from .utils.metrics import readback, span
+from .utils.metrics import count, readback, span
 
 DEFAULT_CHUNK = 256
 
@@ -710,7 +713,9 @@ def decode_frames_device(words, config: AlacConfig, num_samples: int,
     depth.  ``taps`` (8, 16 or 30) is the width of the channel scans'
     FIR walk; lanes with a higher order flag err.
 
-    Per element: one parse launch, one ``decode.flags`` readback, the
+    Per element: one parse launch, one ``decode.flags`` readback (its
+    flags and the counts ``decode.escaped`` and ``decode.sized``; the
+    call's ``decode.lanes`` besides: ``utils.metrics.count``), the
     chained channel decodes (channel c + 1 starts where channel c ends;
     none when every lane escaped), one pcm launch (unmix, shift bytes,
     escape select and tail mask), then the next element starts where
@@ -722,6 +727,7 @@ def decode_frames_device(words, config: AlacConfig, num_samples: int,
     channels' reconstructed streams, (end bits, err)) after its channel
     decodes; "nounesc" the whole decode without the escape samples."""
     with span("decode"):
+        count("decode.lanes", words.shape[0])
         return _decode_frames(words, config, num_samples, taps, stop_at)
 
 
@@ -761,8 +767,11 @@ def _decode_frames(words, config: AlacConfig, num_samples: int, taps: int,
             err = p.err if err is None else err | p.err
         chanbits = depth - 8 * bs + (1 if width == 2 else 0)
         bitpos = p.rice
-        # one readback per element: a lane coded, a lane escaped
-        coded, escaped = readback(p.flags, "decode.flags")
+        # one readback per element: a lane coded, a lane escaped, and the
+        # lanes escaped and sized (a sample count in the header)
+        coded, escaped, n_esc, n_sized = readback(p.readout, "decode.flags")
+        count("decode.escaped", n_esc)
+        count("decode.sized", n_sized)
         with span("decode.scan"):
             recon = None
             if coded:

@@ -23,9 +23,13 @@
 // extracts coefficient t of each channel, so each lane's coefficients go
 // out as one coalesced row; thread 0 writes the lane's rows.  A per-lane
 // start of null reads at bit 0, the packet's first element: one path for
-// every element of every layout.  The element's flags (a lane coded, a
-// lane escaped) are one __syncthreads_or a block and one atomicOr a block
-// into the two ints the entry point zeroes first.
+// every element of every layout.  The element's readout, its flags (a
+// lane coded, a lane escaped) and its counts (the lanes escaped, the
+// lanes whose header carries the sample count), goes into the four ints
+// the entry point zeroes first: a block counts its lanes with
+// __syncthreads_count (thread 0 of each lane's warp votes; a warp is one
+// lane, so a warp's ballot would count one), then thread 0 sets a flag
+// with an atomicOr and adds a nonzero count with an atomicAdd.
 #include "common.cuh"
 
 namespace alac {
@@ -44,7 +48,8 @@ struct ParseArgs {
     const int* num;                     // (B,) first element's, or nullptr
     int* lanes;                         // (6 + 4 * WIDTH, B) rows
     int* coefs;                         // (WIDTH, B, MAXORD)
-    int* flags;                         // (2,): a lane coded, one escaped
+    int* flags;                         // (4,): a lane coded, one escaped,
+                                        // lanes escaped, lanes sized
     unsigned char* bits;                // (2, B): esc, err
     int B, W, S, tag, bs, pb;
 };
@@ -86,7 +91,7 @@ __global__ void __launch_bounds__(PARSE_WARPS * 32) parse_kernel(const ParseArgs
     const int t = threadIdx.x & 31, wi = threadIdx.x >> 5;
     const int b = blockIdx.x * PARSE_WARPS + wi;
     const bool live = b < a.B;
-    bool esc = false;
+    bool esc = false, partial = false;
     if (live) {
         const unsigned* row = a.words + (size_t)b * a.W;
         const long long bp = a.bitpos ? a.bitpos[b] : 0;
@@ -99,7 +104,7 @@ __global__ void __launch_bounds__(PARSE_WARPS * 32) parse_kernel(const ParseArgs
         __syncwarp();
 
         const int rtag = hdr >> 20;
-        const bool partial = (hdr >> 3) & 1;
+        partial = (hdr >> 3) & 1;
         const int bs_f = (hdr >> 1) & 3;
         esc = hdr & 1;
         // a mono slot takes an SCE or an LFE tag
@@ -170,11 +175,17 @@ __global__ void __launch_bounds__(PARSE_WARPS * 32) parse_kernel(const ParseArgs
             a.bits[B + b] = err;
         }
     }
-    const int any_esc = __syncthreads_or(live && esc);
-    const int any_coded = __syncthreads_or(live && !esc);
+    const bool vote = live && t == 0;
+    const int n_esc = __syncthreads_count(vote && esc);
+    const int n_coded = __syncthreads_count(vote && !esc);
+    const int n_sized = __syncthreads_count(vote && partial);
     if (threadIdx.x == 0) {
-        if (any_coded) atomicOr(a.flags, 1);
-        if (any_esc) atomicOr(a.flags + 1, 1);
+        if (n_coded) atomicOr(a.flags, 1);
+        if (n_esc) {
+            atomicOr(a.flags + 1, 1);
+            atomicAdd(a.flags + 2, n_esc);
+        }
+        if (n_sized) atomicAdd(a.flags + 3, n_sized);
     }
 }
 
@@ -197,7 +208,7 @@ int launch_width(const ParseArgs& a, int max_ord, cudaStream_t st) {
 // (the packet's frame lengths) nullptr takes this element's own; width 1
 // or 2 channels, max_ord 16 or 30 coefficients, tag the element's
 // ElementTag, bs its bytes shifted (0..2), pb the config's Rice modifier.
-// Zeroes flags, then launches (nothing more for B = 0).
+// Zeroes the four ints of flags, then launches (nothing more for B = 0).
 extern "C" int alac_parse(const int* words, const int* bitpos, const int* num,
                           int* lanes, int* coefs, int* flags,
                           unsigned char* bits, int B, int W, int S, int width,
@@ -206,7 +217,7 @@ extern "C" int alac_parse(const int* words, const int* bitpos, const int* num,
         || (max_ord != 16 && max_ord != 30) || bs < 0 || bs > 2)
         return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
-    const cudaError_t e = cudaMemsetAsync(flags, 0, 2 * sizeof(int), st);
+    const cudaError_t e = cudaMemsetAsync(flags, 0, 4 * sizeof(int), st);
     if (e != cudaSuccess || B == 0) return (int)e;
     const alac::ParseArgs a{(const unsigned*)words, bitpos, num, lanes, coefs,
                             flags, bits, B, W, S, tag, bs, pb};

@@ -2,10 +2,10 @@
 header, partial-frame field, mix token and every channel's param header
 and coefficients, read at each lane's element start from the int32 word
 image, written as the ``ops.parse.Parsed`` the decode's kernels read,
-with the element's escape flags.  No TPU kernel: it replaces the torch
-glue of the decode (alacjax/codec.py :: decode_frames_device's
-per-element header parse, XLA there).  Counts under
-``LAUNCHES["parse"]``, one launch per element.  Plain version:
+with the element's escape flags and its readout (flags and counts).  No
+TPU kernel: it replaces the torch glue of the decode (alacjax/codec.py
+:: decode_frames_device's per-element header parse, XLA there).  Counts
+under ``LAUNCHES["parse"]``, one launch per element.  Plain version:
 alacjax_torch.ops.parse.parse_element."""
 
 from __future__ import annotations
@@ -58,17 +58,17 @@ def parse_element(words, bitpos, num, tag, width: int, config,
                          f"built: {KERNEL_MAX_ORDS}")
     B, W = words.shape
     K = lane_rows(width)
-    # one buffer: the lane rows, the coefficients, then the flags
-    buf = torch.empty((K * B + width * B * max_ord + 2,), dtype=torch.int32,
+    # one buffer: the lane rows, the coefficients, then the readout
+    buf = torch.empty((K * B + width * B * max_ord + 4,), dtype=torch.int32,
                       device=words.device)
     lanes = buf[:K * B].view(K, B)
-    coefs = buf[K * B:-2].view(width, B, max_ord)
-    flags = buf[-2:]
+    coefs = buf[K * B:-4].view(width, B, max_ord)
+    readout = buf[-4:]
     bits = torch.empty((2, B), dtype=torch.bool, device=words.device)
     launch("alac_parse", words,
            words.data_ptr(), _ptr(bitpos), _ptr(num), lanes.data_ptr(),
-           coefs.data_ptr(), flags.data_ptr(), bits.data_ptr(), B, W,
+           coefs.data_ptr(), readout.data_ptr(), bits.data_ptr(), B, W,
            num_samples, width, max_ord, int(tag),
            bytes_shifted_for_depth(config.bit_depth), config.pb)
     LAUNCHES["parse"] += 1
-    return Parsed(flags, bits, lanes, coefs)
+    return Parsed(readout, bits, lanes, coefs)

@@ -34,9 +34,12 @@ def lane_rows(width: int) -> int:
 
 
 class Parsed(NamedTuple):
-    """One element's parse.  ``flags`` (2,) int32: a lane that does not
-    escape, a lane that escapes (1 or 0; the decode's one readback).
-    ``bits`` (2, B) bool: each lane's escape flag and its error.
+    """One element's parse.  ``readout`` (4,) int32, the decode's one
+    readback of the element: its ``flags``, a lane that does not escape
+    and a lane that escapes (1 or 0), then its counts, the lanes that
+    escape and the lanes whose header carries the sample count (the
+    partial-frame field).  ``bits`` (2, B) bool: each lane's escape flag
+    and its error.
     ``lanes`` (lane_rows(width), B) int32: rows NUM (the packet's frame
     length), POS_ESC (the bit of an escape lane's verbatim samples),
     POS_SHIFT (the shift-byte block), RICE (the first channel's Rice
@@ -46,7 +49,7 @@ class Parsed(NamedTuple):
     cannot flag the walk's tap bound) and DEN.
     ``coefs`` (width, B, max_ord) int32: each channel's sign-extended
     coefficients."""
-    flags: torch.Tensor
+    readout: torch.Tensor
     bits: torch.Tensor
     lanes: torch.Tensor
     coefs: torch.Tensor
@@ -55,6 +58,7 @@ class Parsed(NamedTuple):
     def width(self) -> int:
         return self.coefs.shape[0]
 
+    flags = property(lambda self: self.readout[:2])
     esc = property(lambda self: self.bits[0])
     err = property(lambda self: self.bits[1])
     num = property(lambda self: self.lanes[NUM])
@@ -141,10 +145,11 @@ def _parse_element(w, bitpos, num, tag, width: int, config: AlacConfig,
     first element (None for the first).  A single-element packet is read
     at static offsets; otherwise one window aligned to the element
     carries the same static parse.  Returns a dict with ``esc``,
-    ``num``, ``err``, the per-channel ``params`` (mode, den, pbf, order,
-    coefs), ``pos_esc`` (the raw block of an escape lane), ``pos_shift``
-    (the shift-byte block), ``rice`` (the first channel's Rice start)
-    and, for a CPE, ``mixbits`` and ``mixres``."""
+    ``partial`` (the header's partial-frame flag), ``num``, ``err``, the
+    per-channel ``params`` (mode, den, pbf, order, coefs), ``pos_esc``
+    (the raw block of an escape lane), ``pos_shift`` (the shift-byte
+    block), ``rice`` (the first channel's Rice start) and, for a CPE,
+    ``mixbits`` and ``mixres``."""
     depth = config.bit_depth
     is_cpe = width == 2
     if fast_hdr:
@@ -188,7 +193,7 @@ def _parse_element(w, bitpos, num, tag, width: int, config: AlacConfig,
         # the element sans the partial field, aligned to bit 0
         deep = 39 + 16 + 16 * ((31 + max_ord if is_cpe else max_ord) + 1)
         w_hdr = u32(bitpack.extract_segment(w, pos_esc - 23, deep // 32 + 2))
-    out = dict(esc=esc, num=num, pos_esc=pos_esc)
+    out = dict(esc=esc, partial=partial, num=num, pos_esc=pos_esc)
     if is_cpe:
         mixtok = _sfield(w_hdr, 23, 16)
         out["mixbits"] = torch.where(esc, 0, mixtok >> 8)
@@ -244,7 +249,8 @@ def parse_element(words, bitpos, num, tag, width: int, config: AlacConfig,
         rows += [(config.pb * pbf) // 4, mode, torch.where(esc, 0, order),
                  den]
     return Parsed(
-        flags=torch.stack([(~esc).any(), esc.any()]).to(I32),
+        readout=torch.stack([(~esc).any(), esc.any(), esc.sum(),
+                             p["partial"].sum()]).to(I32),
         bits=torch.stack([esc, p["err"]]),
         lanes=torch.stack(rows).to(I32),
         coefs=torch.stack([c for *_, c in p["params"]]).to(I32))

@@ -18,6 +18,12 @@ tensor back to the host: ``.tolist()`` inside the span
 ``f"{site}.sync"``.  Every other blocking host sync of the port's main
 paths sits in a span whose name ends in ``.sync``, so the syncs of a
 call are its ``*.sync`` spans.
+
+``count(name, n)`` records a count (lanes of a call, say) as
+``(name, n, call_id)`` under the call id of the span open around it on
+the same thread (None outside every span): one flag test while the
+recorder is off.  Counts have their own list, which ``drain_counts()``
+returns and starts anew, so the span tuples keep their shape.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import time
 
 _on = False
 _spans: list = []
+_counts: list = []
 _calls = itertools.count()
 _lock = threading.Lock()
 _local = threading.local()
@@ -87,6 +94,17 @@ def span(name: str):
     return _Span(name)
 
 
+def count(name: str, n: int) -> None:
+    """Record ``n`` under ``name`` for the call whose span is open around
+    it, while the recorder is on; nothing while it is off."""
+    if not _on:
+        return
+    stack = getattr(_local, "stack", None)
+    call = stack[-1][1] if stack else None
+    with _lock:
+        _counts.append((name, int(n), call))
+
+
 def readback(tensor, site: str):
     """``tensor.tolist()`` inside the span ``f"{site}.sync"``: a blocking
     read of a device tensor, counted where it happens."""
@@ -112,4 +130,13 @@ def drain() -> list:
     global _spans
     with _lock:
         out, _spans = _spans, []
+    return out
+
+
+def drain_counts() -> list:
+    """The counts recorded since the last drain, in the order they were
+    recorded; the list starts anew."""
+    global _counts
+    with _lock:
+        out, _counts = _counts, []
     return out

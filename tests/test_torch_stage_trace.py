@@ -221,7 +221,8 @@ def test_stream_steps_and_banks_ms():
 @pytest.mark.parametrize("name", [
     "glue_ms.decode", "glue_ms.encode", "launches.decode", "launches.encode",
     "cost_roofline", "decode_roofline", "idle_share.decode",
-    "idle_share.encode", "host_ms.ingest", "readbacks.encode"])
+    "idle_share.encode", "host_ms.ingest", "readbacks.encode",
+    "parse_ms.decode"])
 def test_benchmark_readers_read_the_same_with_port_spans(name):
     reader = manifest.load_module(os.path.join(manifest.BENCH_DIR, "metrics",
                                                name + ".py"))
@@ -230,3 +231,21 @@ def test_benchmark_readers_read_the_same_with_port_spans(name):
     for attr in ("spans", "device", "merged", "host", "calls", "bounds",
                  "busy_s", "window_s"):
         assert getattr(with_spans, attr) == getattr(without, attr)
+
+
+def test_decode_counters_per_call():
+    """The port's counts of the window's decode calls, summed per call;
+    a count under another call id (outside the window) is left out."""
+    tracer = Tracer(port_spans())
+    tracer.counts = [("decode.lanes", 8, 0), ("decode.escaped", 2, 0),
+                     ("decode.sized", 2, 0), ("decode.lanes", 8, 1),
+                     ("decode.escaped", 4, 1), ("decode.sized", 0, 1),
+                     ("decode.lanes", 8, 7)]
+    got = st.stages(st.StageTrace(tracer, calls=2, bounds={}))
+    assert got["counters.decode"] == {"decode.lanes": 8.0,
+                                      "decode.escaped": 3.0,
+                                      "decode.sized": 1.0}
+    # a trace without counts reads none; one without decode calls, no key
+    assert st.stages(read_trace(port_spans()))["counters.decode"] == {}
+    assert "counters.decode" not in st.stages(
+        st.StageTrace(StreamTracer(), calls=2, bounds={}))

@@ -26,6 +26,10 @@ line ``{"stages": ...}``:
 - ``steps``: packet steps (``encode`` spans) per ``encode.stream`` call,
   and ``banks_ms.stream``: device ms per packet step launched inside
   ``encode.banks`` (the banks' reset, per-order gather and commit);
+- ``counters.decode``: per ``decode`` call, the sum of each count the
+  port recorded in it (``metrics.count``): ``decode.lanes``, and over
+  its elements ``decode.escaped`` (lanes whose element escaped) and
+  ``decode.sized`` (lanes whose header carries the sample count);
 - ``attributed`` / ``device_rows``: the window's device rows whose launch
   lies inside a port span, of all.
 
@@ -79,16 +83,19 @@ def innermost(intervals, times):
 
 class StageTracer(trace.Tracer):
     """The benchmark's tracer, with the port's recorder on while the
-    profiler runs; ``program`` holds the port's spans afterwards."""
+    profiler runs; ``program`` holds the port's spans afterwards, and
+    ``counts`` its counts."""
 
     def __init__(self, on: bool):
         super().__init__(on)
         self.program = []
+        self.counts = []
 
     def start(self) -> None:
         if self.on:
             from alacjax_torch.utils import metrics
             metrics.drain()
+            metrics.drain_counts()
             metrics.enable()
         super().start()
 
@@ -98,6 +105,7 @@ class StageTracer(trace.Tracer):
             from alacjax_torch.utils import metrics
             metrics.disable()
             self.program = metrics.drain()
+            self.counts = metrics.drain_counts()
 
 
 class StageTrace(trace.Trace):
@@ -105,7 +113,7 @@ class StageTrace(trace.Trace):
     that overlap the window) and, for each device row of ``device``, the
     index in ``program`` of the stage that launched it (``launched_in``,
     None where the launch lies outside every port span or has no
-    runtime row)."""
+    runtime row); ``counts``, the port's counts as recorded."""
 
     last = None
 
@@ -120,6 +128,7 @@ class StageTrace(trace.Trace):
         # overlaps the window too)
         self.parent = [keep.get(s[3]) if s[3] is not None else None
                        for s in self.program]
+        self.counts = list(getattr(tracer, "counts", []))
         dev, runtime = self._rows(tracer.prof)
         if len(dev) != len(self.device):
             raise RuntimeError(f"{len(dev)} device rows with ids, "
@@ -213,6 +222,16 @@ class StageTrace(trace.Trace):
             return None
         return ms * self.calls / len(steps)
 
+    def counters(self, top: str) -> dict:
+        """Per ``top`` call of the window, the sum of each count recorded
+        under its call id."""
+        calls = {self.program[i][4] for i in self.tops(top)}
+        out = {}
+        for name, n, call in self.counts:
+            if call in calls:
+                out[name] = out.get(name, 0) + n
+        return {k: v / len(calls) for k, v in out.items()} if calls else {}
+
     def self_device_ms(self) -> dict:
         out = {}
         for (s, e, _), i in zip(self.device, self.launched_in):
@@ -281,6 +300,8 @@ def stages(t: StageTrace) -> dict:
                         ("pcm_ms.decode", "decode.pcm")):
         if t.tops(stage.split(".")[0]):
             out[name] = t.stage_device_ms(stage)
+    if t.tops("decode"):
+        out["counters.decode"] = t.counters("decode")
     out["self_device_ms"] = t.self_device_ms()
     out["self_host_ms"] = t.self_host_ms()
     if t.tops("encode"):
