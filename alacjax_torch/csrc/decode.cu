@@ -68,33 +68,48 @@
 // keeps device memory off its chain.  Each lane stages its row's words in
 // a ring of RING words in shared memory, [slot][lane] at a pitch of 32
 // words, so lane i always reads bank i whatever its cursor: no bank
-// conflict for any mix of positions.  The ring holds NPART parts of PART
-// words ahead of the cursor; when the cursor enters the next part, the
-// lane refills the part it left with cp.async 4-byte copies of its own
-// row (rows need not be 16-byte aligned) and waits only for the part
-// after the cursor's, issued NPART - 2 parts earlier.  A lane reads only
-// what it copied itself, so no barrier is needed.  The copies clamp as a
-// direct read did: past W-1 word W-1, below 0 word 0; a cursor that jumps
-// past the staged parts (a hostile zero-run length) restages the ring
-// there.  A step reads one window, the 96 bits at the cursor from four
-// staged words: the value codeword (at most 32 bits unless it escapes),
-// the escape payload and the zero-run codeword after either (9 + 33 + 32
-// bits at most) all lie in it, so a step makes one round of shared loads
-// and no device load.  The value codeword's arms are selects; the
-// zero-run codeword, whose length would otherwise lie on every step's
-// chain, is decoded only in a step where some lane of the warp triggers a
-// run (a vote), so the warp steps together (the cursor runs every lane to
-// the warp's longest count).  The step is still a chain of some 30
-// dependent operations, not of loads (PERF.md §6: about 430 cycles a
-// codeword, 570 with two device loads a cut).  chanbits is per lane (a
-// stacked batch may mix SCE and CPE channels of several depths); the sign
-// extensions at that width go through sext_sh, so a width of 33 gives 0
-// as alacjax does.  End bits and the error flag (zero-run overrun, or an
-// order the walk does not cover) come out per lane.  PERF.md §6 records
-// the steps measured on the way: a register reservoir refilled from
-// device memory (slower than direct reads), then the one window, the
-// ring, a warp-wide refill (slower than each lane's own: dropped), the
-// vote and the raw decode's store warp.
+// conflict for any mix of positions.  The copies are cp.async 4-byte
+// copies of the lane's own row (rows need not be 16-byte aligned), and
+// clamp as a direct read did: past W-1 word W-1, below 0 word 0.  A step
+// reads one window, the 96 bits at the cursor from four staged words: the
+// value codeword (at most 32 bits unless it escapes), the escape payload
+// and the zero-run codeword after either (9 + 33 + 32 bits at most) all
+// lie in it, so a step makes one round of shared loads.  Who fills the
+// ring depends on the kernel (RiceDec's STAGED):
+//   - with a store warp beside it (the full and raw decodes), the ring is
+//     filled between phases.  At each phase's end the Rice warp publishes
+//     its lanes' cursor words; in the next phase lane i of the store warp
+//     copies the words of Rice lane i's row from that word on, a ring's
+//     worth, and waits for them before the barrier.  So in a phase the
+//     Rice lane reads only words that landed before it began, from the
+//     words both of the last two publications cover (Bits::open); the
+//     common step has no copy, no wait and no branch on its codeword.  A
+//     window outside them (escapes past 30 bits a codeword on average,
+//     a hostile zero-run length) reads its four words from the row in
+//     device memory, that step only: a copy of its own would race the
+//     store warp's copies into the same column;
+//   - the cursor, one warp with no phases, refills its own ring: NPART
+//     parts of PART words ahead of the cursor; entering the next part, a
+//     lane refills the part it left and waits only for the part after
+//     the cursor's, issued NPART - 2 parts earlier, and a cursor that
+//     jumps past the staged parts restages the ring there.  A lane reads
+//     only what it copied itself, so no barrier is needed.
+// The value codeword's arms are selects; the zero-run codeword is decoded
+// only in a step where the lane may trigger a run, by a bound of the mean
+// known before the window (RUN_OFF), so its branch does not wait on the
+// codeword; the warp steps together (the cursor runs every lane to the
+// warp's longest count).  The step is a chain of dependent operations,
+// not of loads (PERF.md §6).  chanbits is
+// per lane (a stacked batch may mix SCE and CPE channels of several
+// depths); the sign extensions at that width go through sext_sh, so a
+// width of 33 gives 0 as alacjax does.  End bits and the error flag
+// (zero-run overrun, or an order the walk does not cover) come out per
+// lane.  PERF.md §6 records the steps measured on the way: a register
+// reservoir refilled from device memory (slower than direct reads), then
+// the one window, the ring, a warp-wide refill by the Rice warp itself
+// (slower than each lane's own: dropped), a vote on the trigger, the raw
+// decode's store warp, then the store warp's refill and the guard in
+// place of the vote.
 //
 // The cursor instance is one warp per block of 32 lanes, the Rice warp
 // alone: it walks each lane's codewords and writes its end bit (a `skip`
@@ -109,6 +124,10 @@
 // `cycles` (or nullptr) receives each Rice warp's clock64 cycles inside
 // its decode loop (and, for the full decode, each FIR warp's inside its
 // walk, a second row): PERF.md §6 reads them as cycles per codeword.
+// Three rows follow, the Rice warp's counts of lane-steps per block: those
+// on which the zero-run guard fired, those on which a run began, and
+// those whose window was not staged (read from device memory; for the
+// cursor, its restages).
 #include <climits>
 
 #include "common.cuh"
@@ -156,9 +175,10 @@ __device__ __forceinline__ void codeword(unsigned stream, int k, int& pre,
 }
 
 constexpr int RING = 64;               // staged words per lane
-constexpr int PART = 16;               // words per refill
+constexpr int PART = 16;               // words per refill (the cursor's)
 constexpr int PART_BITS = 5 + 4;       // log2 of a part's bits
 constexpr int NPART = RING / PART;
+constexpr int WINDOW = 4;              // words a step reads
 
 // One warp's staged words: lane i's word j in w[j % RING][i].
 struct RiceRing {
@@ -180,21 +200,60 @@ __device__ __forceinline__ void stage_wait() {
 
 constexpr unsigned FULL = 0xFFFFFFFFu;   // every lane of a warp
 
-// A lane's bit cursor over its staged words.  Part j is the row's words
-// j*PART .. j*PART + PART - 1 (indices clamped to the row); the ring holds
-// parts part .. part + NPART - 1, of which part and part + 1 have landed
-// whenever the cursor's word lies in part `part`.
+// word w of a row of W words, clamped into it
+__device__ __forceinline__ const unsigned* row_word(const unsigned* row,
+                                                    int w, int W) {
+    return row + (w < 0 ? 0 : (w > W - 1 ? W - 1 : w));
+}
+
+// words from .. to (inclusive) of a row into a lane's column of the ring
+__device__ __forceinline__ void stage_words(unsigned* col,
+                                            const unsigned* row, int W,
+                                            int from, int to) {
+#pragma unroll 4
+    for (int w = from; w <= to; ++w)
+        stage4(col + (w & (RING - 1)) * LANES, row_word(row, w, W));
+}
+
+// The store warp's lane, between phases: the words [b, b + RING - 1] of
+// its Rice lane's row (b the cursor's word the Rice lane published last)
+// that the ring, which holds [a, a + RING - 1] (a the one before), lacks;
+// issued and committed, not waited for.  Each word goes to its own slot,
+// so a slot the copies write holds a word of [a, a + RING - 1] outside
+// [b, b + RING - 1]: the Rice lane reads neither in this phase
+// (Bits::open).
+__device__ __forceinline__ void stage_ahead(unsigned* col,
+                                            const unsigned* row, int W,
+                                            int a, int b) {
+    if (b >= a)
+        stage_words(col, row, W, max(b, a + RING), b + RING - 1);
+    else
+        stage_words(col, row, W, b, min(b + RING - 1, a - 1));
+    cp_async_commit();
+}
+
+// A lane's bit cursor over its staged words.
+//   STAGED (a store warp fills the ring between phases): in a phase the
+//   window may start at words first .. first + span - 1, the words that
+//   both the ring's contents and the store warp's copies of the phase
+//   keep in place (open); a window elsewhere is read from the row.
+//   !STAGED (the lane refills its own ring): part j is the row's words
+//   j*PART .. j*PART + PART - 1 (indices clamped to the row); the ring
+//   holds parts part .. part + NPART - 1, of which part and part + 1 have
+//   landed whenever the cursor's word lies in part `part`.
+template <bool STAGED>
 struct Bits {
     const unsigned* row;
     unsigned* col;                  // the lane's column of the ring
-    int W, bitpos, part;
+    int W, bitpos, part, first;
+    unsigned span;
+    unsigned fell;                  // steps not read from the ring
 
     __device__ __forceinline__ void copy_part(int j) {
 #pragma unroll
         for (int i = 0; i < PART; ++i) {
             const int w = j * PART + i;
-            const int idx = w < 0 ? 0 : (w > W - 1 ? W - 1 : w);
-            stage4(col + (w & (RING - 1)) * LANES, row + idx);
+            stage4(col + (w & (RING - 1)) * LANES, row_word(row, w, W));
         }
     }
 
@@ -208,18 +267,37 @@ struct Bits {
         part = p;
     }
 
+    // STAGED: the ring holds [a, a + RING - 1] as a phase begins and the
+    // store warp copies [b, b + RING - 1] into it during the phase, so
+    // the words both cover stay in place; a window needs WINDOW of them.
+    __device__ __forceinline__ void open(int a, int b) {
+        const int d = a > b ? a - b : b - a;
+        first = max(a, b);
+        span = d > RING - WINDOW ? 0u : (unsigned)(RING - WINDOW + 1 - d);
+    }
+
     __device__ __forceinline__ void init(const unsigned* r, unsigned* c,
                                          int w, int start) {
         row = r;
         col = c;
         W = w;
         bitpos = start;
-        restage(start >> PART_BITS);
+        fell = 0u;
+        if constexpr (STAGED) {
+            const int s = start >> 5;
+            stage_words(col, row, W, s, s + RING - 1);
+            cp_async_commit();
+            stage_wait<0>();
+            open(s, s);
+        } else {
+            restage(start >> PART_BITS);
+        }
     }
 
-    // after a step: entering the next part refills the one left with the
-    // part NPART ahead and waits for the part after the cursor's
+    // !STAGED, after a step: entering the next part refills the one left
+    // with the part NPART ahead and waits for the part after the cursor's
     __device__ __forceinline__ void advance() {
+        if constexpr (STAGED) return;
         const int p = bitpos >> PART_BITS;
         if (p == part) return;
         if (p == part + 1) {
@@ -229,6 +307,7 @@ struct Bits {
             part = p;
         } else {
             restage(p);
+            ++fell;
         }
     }
 
@@ -237,27 +316,54 @@ struct Bits {
 
     // the 96 bits at the cursor, most significant first
     __device__ __forceinline__ void window(unsigned& hi, unsigned& mid,
-                                          unsigned& lo) const {
+                                          unsigned& lo) {
         const int w = bitpos >> 5, sh = bitpos & 31;
-        const unsigned a0 = col[(w & (RING - 1)) * LANES];
-        const unsigned a1 = col[((w + 1) & (RING - 1)) * LANES];
-        const unsigned a2 = col[((w + 2) & (RING - 1)) * LANES];
-        const unsigned a3 = col[((w + 3) & (RING - 1)) * LANES];
+        unsigned a0 = col[(w & (RING - 1)) * LANES];
+        unsigned a1 = col[((w + 1) & (RING - 1)) * LANES];
+        unsigned a2 = col[((w + 2) & (RING - 1)) * LANES];
+        unsigned a3 = col[((w + 3) & (RING - 1)) * LANES];
+        if (STAGED && (unsigned)(w - first) >= span) {
+            a0 = __ldg(row_word(row, w, W));
+            a1 = __ldg(row_word(row, w + 1, W));
+            a2 = __ldg(row_word(row, w + 2, W));
+            a3 = __ldg(row_word(row, w + 3, W));
+            ++fell;
+        }
         hi = __funnelshift_l(a1, a0, sh);
         mid = __funnelshift_l(a2, a1, sh);
         lo = __funnelshift_l(a3, a2, sh);
     }
 };
 
+// The zero-run guard, a bound of the trigger known from the mean alone.
+// The step's update is mb_upd = pb * nd + g (mod 2**32), with
+// g = mb - ((pb * mb) >> PBSHIFT) and nd = n + zmode, and a lane triggers
+// only if (mb_upd << MMULSHIFT) < QB.  Where n > N_MAX_MEAN_CLAMP the
+// update is N_MEAN_CLAMP_VAL, whose (0xFFFF << 2) >= QB triggers nothing;
+// elsewhere nd <= 0xFFFF + 1, so for pb <= 255 (an ALAC stream's field
+// has 8 bits) 4 * pb * nd <= 4 * 255 * 2**16 < RUN_OFF = 2**26.  Then,
+// with x = g << 2 and all of it mod 2**32, 4 * mb_upd = x + 4 * pb * nd
+// lies below QB only if x < QB (no wrap: the sum is at least x) or
+// x >= 2**32 - RUN_OFF (the sum wraps past 2**32), which is
+// x + RUN_OFF (mod 2**32) < RUN_OFF + QB: one add and one compare, a
+// superset of the trigger for any mean and any codeword.  A lane with a
+// larger pb always enters the run block (run_lim = ~0).  Where the guard
+// fires and the lane does not trigger, the block leaves it as it was.
+constexpr unsigned RUN_OFF = 1u << 26;
+
 // The adaptive-Rice side of a substep (_rice_substep): one residual per
 // call, 0 inside a zero run or past the lane's sample count.  The value
 // codeword, its escape payload and the zero-run codeword come from one
-// window.  next() is warp-wide: the zero-run codeword is decoded in the
-// steps where the mean of some lane of the warp triggers a run.
+// window.  A lane decodes the zero-run codeword in a step where its guard
+// fires, a branch of its own: a vote of the warp on the guard, taken
+// before the window, cost 24 cycles a codeword more than the vote on the
+// trigger after it that the guard replaced (PERF.md §6).
+template <bool STAGED>
 struct RiceDec {
-    Bits bits;
-    unsigned mb, zmode, run_rem, pb, wb;
+    Bits<STAGED> bits;
+    unsigned mb, zmode, run_rem, pb, wb, run_lim;
     int c, n_eff, cb, kb;
+    unsigned fired, triggered;      // steps of the run block; of a run
     bool err;
 
     __device__ __forceinline__ void init(const DecodeArgs& a, int lane,
@@ -269,16 +375,23 @@ struct RiceDec {
         run_rem = 0u;
         pb = (unsigned)a.pb[lane];
         wb = a.wb;
+        run_lim = pb <= 255u ? RUN_OFF + QB - 1u : ~0u;
         c = 0;
         n_eff = n;
         cb = a.chanbits[lane];
         kb = a.kb;
+        fired = 0u;
+        triggered = 0u;
         err = false;
     }
 
     __device__ __forceinline__ int next() {
         const bool active = c < n_eff;
         const bool decode = active && run_rem == 0u;
+        // the guard, from the state before the step (RUN_OFF)
+        const unsigned g = mb - ((pb * mb) >> PBSHIFT);
+        const bool may = decode && (c + 1 < n_eff)
+                         && (g << MMULSHIFT) + RUN_OFF <= run_lim;
         unsigned hi, mid, lo;
         bits.window(hi, mid, lo);
 
@@ -303,18 +416,20 @@ struct RiceDec {
         const int half = (int)(ndecode >> 1);
         const int res = (ndecode & 1u) ? wneg(wadd(half, 1)) : half;
 
-        unsigned mb_upd = pb * ndecode + mb - ((pb * mb) >> PBSHIFT);
+        unsigned mb_upd = pb * ndecode + g;
         if (n > N_MAX_MEAN_CLAMP) mb_upd = N_MEAN_CLAMP_VAL;
-        const bool trigger =
-            decode && ((mb_upd << MMULSHIFT) < QB) && (c + 1 < n_eff);
 
         // the zero-run codeword at `len` bits into the window (len <= 42),
-        // decoded only in a step where some lane of the warp triggers one
+        // decoded only by a lane whose guard fires
         int adv = decode ? len : 0;
         unsigned rr = decode ? 0u : (active ? run_rem - 1u : run_rem);
         unsigned zm = decode ? 0u : zmode;
         unsigned mbn = decode ? mb_upd : mb;
-        if (__any_sync(FULL, trigger)) {
+        if (may) {
+            const bool trigger =
+                decode && ((mb_upd << MMULSHIFT) < QB) && (c + 1 < n_eff);
+            ++fired;
+            triggered += trigger ? 1u : 0u;
             const int kz = clz32(mb_upd) - 24 + (int)((mb_upd + 16u) >> 6);
             const int kzc = kz < 0 ? 0 : (kz > 31 ? 31 : kz);
             const unsigned mz = ((1u << kzc) - 1u) & wb;
@@ -350,6 +465,16 @@ struct RiceDec {
         c += active ? 1 : 0;
         bits.advance();
         return decode ? res : 0;
+    }
+
+    // the warp's three counts after `cycles`'s first `rows` rows
+    __device__ __forceinline__ void counts(long long* cycles, int rows) {
+        const unsigned n[3] = {__reduce_add_sync(FULL, fired),
+                               __reduce_add_sync(FULL, triggered),
+                               __reduce_add_sync(FULL, bits.fell)};
+        if ((threadIdx.x & 31) == 0)
+            for (int i = 0; i < 3; ++i)
+                cycles[(size_t)(rows + i) * gridDim.x + blockIdx.x] = n[i];
     }
 };
 
@@ -538,14 +663,84 @@ __device__ __forceinline__ long long fir_warp(const DecodeArgs& a, int ln,
     return cyc;
 }
 
+// The Rice warp beside a store warp: tile p's residuals in phase p of the
+// block's `phases` (p < the tiles), to out[p & 1] at [sample][lane], or
+// at [lane][sample] where LANE_MAJOR; at each phase's end it publishes
+// its lanes' cursor words to pub[p & 1] for the store warp (Stager) and
+// opens the words it may read in the next phase.  Returns its clock64
+// cycles inside its decode loop.
+template <bool LANE_MAJOR>
+__device__ __forceinline__ long long rice_warp(RiceDec<true>& r,
+                                               int (*out)[TILE][PITCH],
+                                               int (*pub)[LANES], int S,
+                                               int phases, int nthreads,
+                                               int lid) {
+    const int n_tiles = (S + TILE - 1) / TILE;
+    int prev = r.bits.bitpos >> 5;
+    long long cyc = 0;
+    for (int p = 0; p < phases; ++p) {
+        if (p < n_tiles) {
+            const long long c0 = clock64();
+            const int cnt = min(TILE, S - p * TILE);
+            int (*tile)[PITCH] = out[p & 1];
+#pragma unroll 2
+            for (int j = 0; j < cnt; ++j) {
+                const int x = r.next();
+                if (LANE_MAJOR)
+                    tile[lid][j] = x;
+                else
+                    tile[j][lid] = x;
+            }
+            cyc += clock64() - c0;
+            const int cw = r.bits.bitpos >> 5;
+            pub[p & 1][lid] = cw;
+            r.bits.open(prev, cw);
+            prev = cw;
+        }
+        phase_barrier(nthreads);
+    }
+    return cyc;
+}
+
+// whether the store warp stages words in phase p: those of phase p + 1,
+// where the Rice warp decodes (p + 1 < n_tiles) and has published (p >= 1)
+__device__ __forceinline__ bool stage_due(int p, int n_tiles) {
+    return p >= 1 && p + 1 < n_tiles;
+}
+
+// Lane i of the store warp fills Rice lane i's ring between phases: in
+// phase p (stage_due) the words the Rice lane reads in
+// phase p + 1, from the cursor word it published at the end of phase
+// p - 1 (stage_ahead), landed before the phase's barrier.  A dead lane
+// reads lane 0's row, as its Rice lane does.
+struct Stager {
+    const unsigned* row;
+    unsigned* col;
+    int W, held;                    // the ring holds [held, held + RING - 1]
+
+    __device__ __forceinline__ void init(const DecodeArgs& a, int lane,
+                                         RiceRing& ring, int lid) {
+        row = a.words + (size_t)(lane % a.rows) * a.W;
+        col = &ring.w[0][lid];
+        W = a.W;
+        held = a.start_bits[lane] >> 5;
+    }
+
+    __device__ __forceinline__ void issue(int cw) {
+        stage_ahead(col, row, W, held, cw);
+        held = cw;
+    }
+};
+
 // Warp 0 of a block decodes its 32 lanes' residuals, warp 1 walks them,
-// warp 2 stores the samples.
+// warp 2 stores the samples and stages warp 0's words.
 template <int TAPS>
 __global__ void decode_kernel(const DecodeArgs a) {
     __shared__ int ring[2][TILE][PITCH];
     __shared__ int otile[2][TILE][PITCH];
     __shared__ int hist[HIST][LANES];
     __shared__ RiceRing staged;
+    __shared__ int pub[2][LANES];
     const int warp = threadIdx.x >> 5, lid = threadIdx.x & 31;
     const int lane0 = blockIdx.x * 32, lane = lane0 + lid;
     const bool live = lane < a.L;
@@ -558,21 +753,15 @@ __global__ void decode_kernel(const DecodeArgs a) {
 
     if (warp == 0) {
         // tile p's residuals in phase p
-        RiceDec r;
+        RiceDec<true> r;
         r.init(a, ln, n_eff, staged);
-        long long cyc = 0;
-        for (int p = 0; p <= n_tiles + 1; ++p) {
-            if (p < n_tiles) {
-                const long long c0 = clock64();
-                const int t0 = p * TILE, cnt = min(TILE, S - t0);
-#pragma unroll 2
-                for (int j = 0; j < cnt; ++j) ring[p & 1][j][lid] = r.next();
-                cyc += clock64() - c0;
-            }
-            phase_barrier(DECODE_THREADS);
-        }
+        const long long cyc = rice_warp<false>(r, ring, pub, S, n_tiles + 2,
+                                               DECODE_THREADS, lid);
         r.bits.drain();
-        if (a.cycles && lid == 0) a.cycles[blockIdx.x] = cyc;
+        if (a.cycles) {
+            if (lid == 0) a.cycles[blockIdx.x] = cyc;
+            r.counts(a.cycles, 2);
+        }
         if (live) {
             a.end_bits[lane] = r.bits.bitpos;
             a.err[lane] = (r.err || bad_order) ? 1 : 0;
@@ -598,13 +787,18 @@ __global__ void decode_kernel(const DecodeArgs a) {
             cyc = fir_warp<4>(a, ln, n_eff, na_k, ring, otile, col, lid);
         if (a.cycles && lid == 0) a.cycles[gridDim.x + blockIdx.x] = cyc;
     } else {
-        // tile p - 2's samples to (L, S) in phase p
+        // tile p - 2's samples to (L, S) in phase p, and warp 0's words
+        Stager st;
+        st.init(a, ln, staged, lid);
         for (int p = 0; p <= n_tiles + 1; ++p) {
+            const bool due = stage_due(p, n_tiles);
+            if (due) st.issue(pub[(p - 1) & 1][lid]);
             if (p >= 2) {
                 const int t0 = (p - 2) * TILE;
                 store_rows(otile[(p - 2) & 1], a, lane0, t0,
                            min(TILE, S - t0), lid);
             }
+            if (due) stage_wait<0>();
             phase_barrier(DECODE_THREADS);
         }
     }
@@ -618,7 +812,7 @@ __global__ void cursor_kernel(const DecodeArgs a) {
     const int ln = live ? lane : 0;         // a dead lane reads lane 0 ...
     const int n_eff = (!live || (a.skip && a.skip[ln])) ? 0    // ... never
                       : (a.num ? a.num[ln] : a.S);
-    RiceDec r;
+    RiceDec<false> r;
     r.init(a, ln, n_eff, staged);
     // the warp steps together; past a lane's count its substeps idle
     const int steps = __reduce_max_sync(FULL, (unsigned)min(n_eff, a.S));
@@ -626,7 +820,10 @@ __global__ void cursor_kernel(const DecodeArgs a) {
     for (int t = 0; t < steps; ++t) r.next();
     const long long cyc = clock64() - c0;
     r.bits.drain();
-    if (a.cycles && threadIdx.x == 0) a.cycles[blockIdx.x] = cyc;
+    if (a.cycles) {
+        if (threadIdx.x == 0) a.cycles[blockIdx.x] = cyc;
+        r.counts(a.cycles, 1);
+    }
     if (live) {
         a.end_bits[lane] = r.bits.bitpos;
         a.err[lane] = r.err ? 1 : 0;
@@ -635,10 +832,12 @@ __global__ void cursor_kernel(const DecodeArgs a) {
 
 // The Rice warp and a store warp per block: warp 0 decodes tile p's
 // signed residuals into a shared [lane][sample] tile in phase p, warp 1
-// stores tile p - 1 to (L, S); then each lane's end bit and err.
+// stores tile p - 1 to (L, S) and stages warp 0's words; then each lane's
+// end bit and err.
 __global__ void raw_kernel(const DecodeArgs a) {
     __shared__ int tiles[2][TILE][PITCH];
     __shared__ RiceRing staged;
+    __shared__ int pub[2][LANES];
     const int warp = threadIdx.x >> 5, lid = threadIdx.x & 31;
     const int lane0 = blockIdx.x * 32, lane = lane0 + lid;
     const bool live = lane < a.L;
@@ -646,32 +845,31 @@ __global__ void raw_kernel(const DecodeArgs a) {
     const int n_eff = !live ? 0 : (a.num ? a.num[ln] : a.S);
     const int n_tiles = (a.S + TILE - 1) / TILE;
     if (warp == 0) {
-        RiceDec r;
+        RiceDec<true> r;
         r.init(a, ln, n_eff, staged);
-        long long cyc = 0;
-        for (int p = 0; p <= n_tiles; ++p) {
-            if (p < n_tiles) {
-                const long long c0 = clock64();
-                const int cnt = min(TILE, a.S - p * TILE);
-#pragma unroll 2
-                for (int j = 0; j < cnt; ++j) tiles[p & 1][lid][j] = r.next();
-                cyc += clock64() - c0;
-            }
-            phase_barrier(64);
-        }
+        const long long cyc = rice_warp<true>(r, tiles, pub, a.S, n_tiles + 1,
+                                              64, lid);
         r.bits.drain();
-        if (a.cycles && lid == 0) a.cycles[blockIdx.x] = cyc;
+        if (a.cycles) {
+            if (lid == 0) a.cycles[blockIdx.x] = cyc;
+            r.counts(a.cycles, 1);
+        }
         if (live) {
             a.end_bits[lane] = r.bits.bitpos;
             a.err[lane] = r.err ? 1 : 0;
         }
     } else {
+        Stager st;
+        st.init(a, ln, staged, lid);
         for (int p = 0; p <= n_tiles; ++p) {
+            const bool due = stage_due(p, n_tiles);
+            if (due) st.issue(pub[(p - 1) & 1][lid]);
             if (p > 0) {
                 const int t0 = (p - 1) * TILE;
                 store_rows(tiles[(p - 1) & 1], a, lane0, t0,
                            min(TILE, a.S - t0), lid);
             }
+            if (due) stage_wait<0>();
             phase_barrier(64);
         }
     }

@@ -28,6 +28,19 @@ KERNEL_TAPS = (fused_decode.TAPS,) + fused_decode.LADDER_TAPS
 MAX_CHANBITS = 33        # one past a 32-bit channel: sign extensions give 0
 
 
+# The Rice warps' counts of lane-steps per block that follow the cycles in
+# ``cycles=``: those on which the zero-run guard fired, those on which a
+# zero run began, and those whose window the ring did not hold (read from
+# device memory, or for the cursor its ring restaged).
+COUNTS = ("guard_fired", "run_triggered", "window_unstaged")
+
+
+def cycle_rows(full: bool) -> int:
+    """Rows of an instance's ``cycles=`` tensor: the Rice warps' cycles,
+    the FIR warps' for a full decode (``full``), then ``COUNTS``."""
+    return (2 if full else 1) + len(COUNTS)
+
+
 def counter(taps: int, raw: bool = False) -> str:
     """The LAUNCHES key of the instance with this tap count (or raw)."""
     if raw:
@@ -81,9 +94,10 @@ def decode_channel(words, start_bits, num_samples: int, chanbits,
     the predictor arguments not read (None will do), err the zero-run
     overrun alone.  ``cycles`` (CUDA only, int64) receives the Rice
     warps' clock64 cycles inside their decode loops, one per block of 32
-    lanes: shape (ceil(L / 32),) for the raw instance, (2, ceil(L / 32))
-    for the full decode, whose second row holds the FIR warps' cycles
-    inside their walks."""
+    lanes, in its first row; the full decode's second row holds the FIR
+    warps' cycles inside their walks; the last ``len(COUNTS)`` rows the
+    Rice warps' counts (``COUNTS``): shape (4, ceil(L / 32)) for the raw
+    instance, (5, ceil(L / 32)) for the full decode."""
     lane = (start_bits, pb, coefs0, mode, numactive, denshift, num)
     if isinstance(chanbits, torch.Tensor):
         lane = lane + (chanbits,)
@@ -107,8 +121,7 @@ def decode_channel(words, start_bits, num_samples: int, chanbits,
     err = torch.empty((L,), dtype=torch.int32, device=dev)
     W = words.shape[1]
     if cycles is not None:
-        blocks = -(-L // 32)
-        expect(cycles, "cycles", (blocks,) if raw else (2, blocks),
+        expect(cycles, "cycles", (cycle_rows(not raw), -(-L // 32)),
                torch.int64)
     if raw:
         launch("alac_decode_raw", words,
@@ -140,8 +153,9 @@ def cursor_scan(words, start_bits, num_samples: int, chanbits, mb0: int, pb,
     cursor_scan also sets it for its TPU bit cache's drift or underrun
     (fused_decode.py:398-399), a structure this port does not have, so
     the two agree wherever no such drift arises.  ``cycles`` (CUDA only:
-    a (ceil(L / 32),) int64 tensor) receives each Rice warp's clock64
-    cycles inside its loop."""
+    a (4, ceil(L / 32)) int64 tensor) receives each Rice warp's clock64
+    cycles inside its loop, then its counts (``COUNTS``; a restage of
+    its ring counts as a window not staged)."""
     lane = (start_bits, pb, skip, num)
     if isinstance(chanbits, torch.Tensor):
         lane = lane + (chanbits,)
@@ -159,7 +173,8 @@ def cursor_scan(words, start_bits, num_samples: int, chanbits, mb0: int, pb,
                              f"{tuple(skip.shape)}")
         skip_i = skip.to(torch.int32).contiguous()
     if cycles is not None:
-        expect(cycles, "cycles", (-(-L // 32),), torch.int64)
+        expect(cycles, "cycles", (cycle_rows(False), -(-L // 32)),
+               torch.int64)
     end = torch.empty((L,), dtype=torch.int32, device=dev)
     err = torch.empty((L,), dtype=torch.int32, device=dev)
     launch("alac_decode_cursor", words,

@@ -151,6 +151,7 @@ class _RiceCursor:
         mb_upd = torch.where(n > N_MAX_MEAN_CLAMP, N_MEAN_CLAMP_VAL, mb_upd)
         trigger = (decode_now & (((mb_upd << MMULSHIFT) & MASK32) < QB)
                    & (c1 < n_eff))
+        count_work("runs", trigger)
 
         # zero-run codeword (speculative; used where trigger)
         kz = clz32(mb_upd) - 24 + (((mb_upd + 16) & MASK32) >> 6)

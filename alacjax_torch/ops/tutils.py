@@ -24,9 +24,10 @@ MASK32 = 0xFFFFFFFF
 # The plain versions' data-dependent work, for sizing a kernel's least
 # time (chip_smoke.py): None, or a dict into which the plain loops count
 # the samples a Rice machine coded or decoded ("coded"; the others sat in
-# a zero run or past the lane's count) and the steps the sign-sign walks
-# took ("taps").  Entries are keyed (key, mask shape) and hold running
-# per-element counts, one in-place add per step; ``work_total`` sums them.
+# a zero run or past the lane's count), the zero runs a Rice decode
+# started ("runs") and the steps the sign-sign walks took ("taps").
+# Entries are keyed (key, mask shape) and hold running per-element
+# counts, one in-place add per step; ``work_total`` sums them.
 WORK = None
 
 

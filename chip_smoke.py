@@ -1198,8 +1198,10 @@ def rice_cycles(calls, clock_hz: float):
     most over the warps) and the most times S over the SM clock: the
     Rice chain, in ms; for a full decode the FIR warps' cycles per step
     beside, and its mean per order mix of a warp's walking lanes
-    (tools/torch_rice_ab.py :: order_mix)."""
+    (tools/torch_rice_ab.py :: order_mix); then the Rice warps' counts
+    (kernels.decode.COUNTS), summed over the warps."""
     import torch
+    from alacjax_torch.kernels import decode as kd
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "tools"))
     from torch_rice_ab import order_mix
@@ -1209,15 +1211,17 @@ def rice_cycles(calls, clock_hz: float):
         L, steps = args[1].shape[0], args[2]
         blocks = -(-L // 32)
         full = name in ("decode", "decode_hi")
-        cyc = torch.zeros((2, blocks) if full else (blocks,),
-                          dtype=torch.int64, device="cuda")
+        cyc = torch.zeros((kd.cycle_rows(full), blocks), dtype=torch.int64,
+                          device="cuda")
         wrapper(*args, **kwargs, cycles=cyc)
-        per = cyc.double().reshape(-1, blocks) / steps
+        per = cyc.double() / steps
         worst = per[0].max().item()
+        counts = cyc[-len(kd.COUNTS):].sum(dim=1).tolist()
         line = (f"  Rice cycles per codeword, {name} on {L} lanes x {steps}"
                 f" ({describe(name, args, kwargs)}): mean "
                 f"{per[0].mean().item():.1f}, most {worst:.1f} (x S / "
-                f"clock: {worst * steps / clock_hz * 1e3:.4f} ms)")
+                f"clock: {worst * steps / clock_hz * 1e3:.4f} ms); "
+                + ", ".join(f"{k} {v}" for k, v in zip(kd.COUNTS, counts)))
         if full:
             line += (f"; FIR cycles per step: mean {per[1].mean().item():.1f}"
                      f", most {per[1].max().item():.1f}")

@@ -25,6 +25,11 @@ too; rows of few and of many ones; any row width.  With
 millions of bits long, so its cursor leaves the staged words for the
 row's end.
 
+``slow_lanes`` mixes, in every warp, lanes that take each of the Rice
+decoder's slow paths (zero runs, escapes past the words a phase holds
+staged, a mean that starts a run at every sample) with lanes that take
+none.
+
 ``fir_lanes`` aims at the FIR walk: small residuals coded by the Rice
 coder, so the sign-sign adaptation stops at every tap, with warps of
 one order and of mixed orders (see its docstring)."""
@@ -217,6 +222,63 @@ def fir_lanes(rng, L: int, S: int, taps: int):
                                 min(int(cb[k]), 32), int(start[k]), W, rng)
                       for k in range(L)])
     lane = dict(start=start, cb=cb, pb=pb, mode=mode, order=order, den=den,
+                num=num, skip=np.zeros(L, bool), coefs=coefs)
+    lane = {k: v.astype(bool if k == "skip" else np.int32)
+            for k, v in lane.items()}
+    return words, lane
+
+
+def slow_lanes(rng, L: int, S: int):
+    """(words (L, W), lane dict as decode_lanes' with coefs (L, 8)),
+    numpy, for the Rice decoder's slow paths beside lanes that take
+    none, in every warp: streams coded by the Rice coder (_rice_row), so
+    the paths are those a real stream takes.  Lane i by i % 8:
+      0, 5, 7: music-like residuals at chanbits 16, 24 and 32 (a normal
+         spread of 40, 3,000 and 3,000): no slow path;
+      1: near silence (zeros, a rare +-1, at chanbits 16): zero runs;
+      2: silence broken by full-scale samples at chanbits 16: escapes of
+         25 bits after zero runs;
+      3: uniform 24-bit samples: every codeword escapes, 33 bits, more
+         than the 30 a codeword that two phases of staged words hold;
+      4: uniform 32-bit samples: 41 bits a codeword;
+      6: pb 0, so the mean stays at MB0 and every coded sample starts a
+         zero run.
+    Lanes of kind 7 code at pb 41, the others at 40 (or 0): with
+    MB0_JUMP as the mean's start, a lane at pb 40 or 0 whose first value
+    is small (its random leading bits decide) triggers at once a run
+    whose codeword is millions of bits long, and a lane at pb 41 cannot.
+    num below S on every fourth lane (i % 4 == 1), else S; each lane's
+    stream starts after 0..95 random bits; orders 4 and 8, mode 0."""
+    i = np.arange(L)
+    kind = i % 8
+    cb = np.array((16, 16, 16, 24, 32, 24, 16, 32))[kind]
+    num = np.where(i % 4 == 1, rng.integers(1, S + 1, L), S)
+    pb = np.where(kind == 6, 0, np.where(kind == 7, PB0 + 1, PB0))
+    res = np.zeros((L, S), dtype=np.int64)
+    for k in range(L):
+        if kind[k] in (0, 5, 7):
+            res[k] = rng.normal(0, 40 if kind[k] == 0 else 3000, S)
+        elif kind[k] == 1:
+            res[k] = np.where(rng.random(S) < 0.02,
+                              rng.choice((-1, 1), S), 0)
+        elif kind[k] == 2:
+            res[k] = np.where(rng.random(S) < 0.01,
+                              rng.choice((-32767, 32767), S), 0)
+        elif kind[k] == 3:
+            res[k] = rng.integers(-(1 << 23), 1 << 23, S)
+        elif kind[k] == 4:
+            res[k] = rng.integers(-(1 << 31) + 1, 1 << 31, S)
+        else:
+            res[k] = rng.integers(-3, 4, S)
+    start = rng.integers(0, 96, L)
+    W = 8 + (S * 42 + 96) // 32
+    words = np.stack([_rice_row(res[k], int(num[k]), int(pb[k]),
+                                int(cb[k]), int(start[k]), W, rng)
+                      for k in range(L)])
+    coefs = rng.integers(-300, 300, (L, 8))
+    coefs[:, :3] = (160, -190, 170)
+    lane = dict(start=start, cb=cb, pb=pb, mode=np.zeros(L),
+                order=np.where(i % 3 == 0, 8, 4), den=np.full(L, 9),
                 num=num, skip=np.zeros(L, bool), coefs=coefs)
     lane = {k: v.astype(bool if k == "skip" else np.int32)
             for k, v in lane.items()}

@@ -23,7 +23,11 @@ width):
     and that time times the SM clock over S, the cycles one step takes;
   - where the checkout's wrappers take ``cycles``, the Rice warps'
     clock64 cycles per codeword (a step) inside their loops, mean and
-    most over the warps, and the FIR warps' per step for a full decode,
+    most over the warps; where its kernels also count (``kd.COUNTS``),
+    the counts and their shares of the lane-steps: those on which the
+    zero-run guard fired, on which a zero run began, and whose window
+    was not staged;
+    and the FIR warps' per step for a full decode,
     also split by the order mix of each warp's walking lanes (a key such
     as "4", "8" or "4+8": the distinct orders, clamped to the walk, of
     the warp's lanes other than those of order 0 and 31), with each
@@ -190,10 +194,19 @@ def child(root: str, sass_out: str | None = None) -> dict:
         if "cycles" in inspect.signature(wrapper).parameters:
             blocks = -(-L // 32)
             full = name in ("decode", "decode_hi")
-            cyc = torch.zeros((2, blocks) if full else (blocks,),
-                              dtype=torch.int64, device="cuda")
+            # a checkout whose kernels count (kd.COUNTS) takes their rows
+            # after the cycles; an older one takes the cycles alone
+            counted = hasattr(kd, "COUNTS")
+            shape = ((kd.cycle_rows(full), blocks) if counted
+                     else (2, blocks) if full else (blocks,))
+            cyc = torch.zeros(shape, dtype=torch.int64, device="cuda")
             wrapper(*args, **kwargs, cycles=cyc)
             per = cyc.double().reshape(-1, blocks) / S
+            if counted:
+                tot = cyc[-len(kd.COUNTS):].sum(dim=1).tolist()
+                row["rice_counts"] = dict(zip(kd.COUNTS, tot))
+                row["rice_count_shares"] = {k: v / (L * S)
+                                            for k, v in zip(kd.COUNTS, tot)}
             row["rice_cycles_per_codeword"] = dict(
                 mean=per[0].mean().item(), most=per[0].max().item())
             row["rice_chain_ms"] = per[0].max().item() * S / clock * 1e3
